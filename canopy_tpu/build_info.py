@@ -2,7 +2,7 @@
 
 The reference derives its version from the git history at configure
 time (``cmake/build-info.cmake:1-67``: commit hash + ``rev-list
---count`` -> ``0.0.<count>``).  The TPU-native package is pure Python,
+--count`` -> ``0.0.<count>``).  The package is pure Python,
 so the equivalent is computed lazily at runtime: when the package runs
 from a git checkout, :func:`build_info` reports the commit, commit
 count, and dirty state; from an installed wheel it falls back to the

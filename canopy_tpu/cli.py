@@ -22,6 +22,9 @@ import sys
 from .errors import Error
 from .settings import Settings
 
+#: ``--platform`` choice -> JAX platform name.
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda"}
+
 
 class _VersionAction(argparse.Action):
     """Lazy --version: the git subprocesses (commit/count/dirty) run
@@ -36,7 +39,7 @@ class _VersionAction(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="canopy-tpu",
-        description="TPU-native quantification of Open-PSA MEF models.")
+        description="Accelerated quantification of Open-PSA MEF models.")
     parser.add_argument("--version", action=_VersionAction, nargs=0,
                         help="build version (git-derived when available)")
     parser.add_argument("input_files", nargs="*",
@@ -90,8 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, metavar="S")
     parser.add_argument("--mission-time", type=float, metavar="T")
     parser.add_argument("--time-step", type=float, metavar="T")
-    parser.add_argument("--platform", choices=["cpu", "tpu"], default=None,
-                        help="pin the JAX backend (small models are often "
+    parser.add_argument("--platform", choices=sorted(PLATFORMS),
+                        default=None,
+                        help="pin the JAX backend: cpu, or gpu for the "
+                             "CUDA platform (small models are often "
                              "faster on cpu; overrides environment pins)")
     parser.add_argument("--profile", metavar="LOG_DIR", default=None,
                         help="write a jax.profiler trace (TensorBoard) of "
@@ -156,9 +161,11 @@ def settings_from_args(args, base: Settings | None = None) -> Settings:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    import jax
     if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
+        jax.config.update("jax_platforms", PLATFORMS[args.platform])
+    from .device import setup_compile_cache
+    setup_compile_cache()
     try:
         input_files = list(args.input_files)
         output = args.output

@@ -3,7 +3,7 @@
 The reference names BDD as its default qualitative/quantitative algorithm
 (``settings.h:13``, ``Algorithm::kBdd``). Direct bottom-up probability
 propagation is exact only for tree-like structures; any shared basic event
-(CCF expansions guarantee them) needs Shannon decomposition. The TPU-native
+(CCF expansions guarantee them) needs Shannon decomposition. The
 split mirrors the reference's host/device split for ``src/bool/bool``:
 
 * **Host (this module)**: reduce the gate DAG to an ROBDD with an
@@ -11,13 +11,15 @@ split mirrors the reference's host/device split for ``src/bool/bool``:
   CUDD-style construction (no complement edges; NOT is one memoized
   traversal). Variable order = DFS first-touch order of basic events, a
   standard structural heuristic.
-* **Device (engine/bdd_eval.py)**: probability evaluation of the ROBDD is
-  a *linear* pass — ``P(node) = p_var * P(high) + (1-p_var) * P(low)`` —
-  which this module level-schedules (longest path from the terminals) so
-  each level is one batched gather+FMA on device: the same
+* **Device** (:func:`fused_probability`): probability evaluation of the
+  ROBDD is a *linear* pass — ``P(node) = p_var * P(high) + (1-p_var) *
+  P(low)`` — which this module level-schedules (longest path from the
+  terminals) so each level is one batched gather+FMA on device: the same
   static-shape, data-parallel form as the gate propagation, but exact.
   Batched over a trials axis it is the exact-uncertainty SpMM; under
-  `jax.grad` it yields exact Birnbaum importances.
+  `jax.grad` it yields exact Birnbaum importances.  One monolithic BDD
+  and a chain of module BDDs (``compiler/modules.py``) run through the
+  same :class:`FusedChain` program.
 
 Construction cost is exponential in the worst case (it is for every BDD
 engine); `max_nodes` guards against blowup so callers can fall back to
@@ -27,14 +29,18 @@ cut-set approximations.
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..errors import LogicError
 from ..mef.event import BasicEvent, Connective, Formula, Gate, HouseEvent
-from .graph import CompiledTree
+from .graph import CompiledTree, _emit_gate_ops
 
-__all__ = ["BddForest", "CompiledBdd", "build_bdd", "build_bdd_multi"]
+__all__ = ["BddForest", "CompiledBdd", "FusedChain", "build_bdd",
+           "build_bdd_multi", "fuse_chain", "fused_probability"]
 
 _ZERO = 0  # Terminal node indices.
 _ONE = 1
@@ -257,10 +263,19 @@ class CompiledBdd:
     raw_low: np.ndarray | None = None
     raw_high: np.ndarray | None = None
     slot_of_var: dict[int, int] | None = None
+    _fused: FusedChain | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def depth(self) -> int:
         return len(self.levels)
+
+    def fused(self) -> FusedChain:
+        """This BDD as a one-module :class:`FusedChain` (built once)."""
+        if self._fused is None:
+            self._fused = fuse_chain([(self, self.n_basic)], self.n_basic,
+                                     self.n_basic)
+        return self._fused
 
     def resolved_root(self) -> int:
         """The raw-array root index; 0/1 for trivially-constant BDDs
@@ -346,7 +361,6 @@ def build_bdd_multi(tree: CompiledTree, root_slots: list[int],
         # the level-block rows, whose semantics are the ones every
         # engine evaluates (maybe-NOT of AND over maybe-NOT'ed args /
         # XOR-IFF pairs / count windows).
-        from .schedule import _emit_gate_ops
         for kind, out, args, aux in _emit_gate_ops(tree):
             nodes = []
             for slot, flag in args:
@@ -499,3 +513,149 @@ def _schedule(forest, root: int, n_basic: int,
                        root_ptr=ptr[root], raw_var=var_arr,
                        raw_low=low_arr, raw_high=high_arr,
                        slot_of_var=dict(slot_of_var))
+
+
+@dataclasses.dataclass
+class FusedChain:
+    """A chain of BDDs as one level-scheduled Shannon program.
+
+    The chain lists ``(bdd, output slot)`` pairs, innermost first: a BDD
+    may decide on the output slot of an earlier one (a collapsed module,
+    ``compiler/modules.py``); a single BDD is a one-link chain.  Value
+    rows are ``[zero, one, basics..., nodes...]``.  A node's level is one
+    more than the deepest of its two children and of its decision
+    variable, where an earlier BDD's output sits at that BDD's root.
+    BDDs at the same depth therefore evaluate in the same level, and a
+    chain of thousands of small modules takes as many batched steps as
+    its deepest path instead of one step per node level of every module.
+    Per level: ``(rows, out_start)``, where ``rows`` concatenates the
+    decision-variable, low-child and high-child rows of the level's
+    nodes, whose outputs fill consecutive rows from ``out_start``.
+
+    ``segments`` is what the device runs: runs of consecutive levels
+    padded to one power-of-two width each, ``(rows (L, 3W), out (L, W))``,
+    whose padding reads and writes the scratch row ``n_rows``.  Each
+    segment is one ``lax.scan``, so compile time grows with the number of
+    segments, not levels; a level is at most 4x narrower than its
+    segment's width.
+    """
+
+    n_rows: int
+    n_basic: int
+    levels: list[tuple[np.ndarray, int]]
+    top_row: int
+    segments: list[tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default_factory=list)
+
+
+def fuse_chain(chain: list[tuple[CompiledBdd, int]], n_basic: int,
+               top_slot: int) -> FusedChain:
+    """Fuse ``chain`` into one :class:`FusedChain` whose top is the BDD
+    written to ``top_slot``.  Vectorized per BDD level."""
+    base = 2 + n_basic
+    n_slots = 1 + max([n_basic] + [out for _bdd, out in chain])
+    slot_depth = np.zeros(n_slots, np.int64)   # Basics: depth 0.
+    empty = np.zeros(0, np.int64)
+    depths, modules, ptrs, vars_, lows, highs = [], [], [], [], [], []
+    for m, (bdd, out_slot) in enumerate(chain):
+        depth = np.zeros(bdd.n_nodes + 2, np.int64)  # Terminals: depth 0.
+        for var, lo, hi, out in bdd.levels:
+            depth[out] = 1 + np.maximum(slot_depth[var],
+                                        np.maximum(depth[lo], depth[hi]))
+        slot_depth[out_slot] = depth[bdd.root_ptr]
+        cols = list(zip(*bdd.levels)) or [[empty]] * 4
+        var, lo, hi, out = (np.concatenate(c).astype(np.int64)
+                            for c in cols)
+        depths.append(depth[out])
+        modules.append(np.full(len(out), m, np.int64))
+        ptrs.append(out)
+        vars_.append(var)
+        lows.append(lo)
+        highs.append(hi)
+
+    # Rows in (depth, module, local pointer) order.
+    d_all = np.concatenate(depths + [empty])
+    order = np.lexsort((np.concatenate(ptrs + [empty]),
+                        np.concatenate(modules + [empty]), d_all))
+    row_all = np.empty(len(order), np.int64)
+    row_all[order] = base + np.arange(len(order))
+    slot_row = np.zeros(n_slots, np.int64)
+    slot_row[:n_basic] = 2 + np.arange(n_basic)
+    rowmaps = []
+    offset = 0
+    for (bdd, out_slot), out in zip(chain, ptrs):
+        rowmap = np.arange(bdd.n_nodes + 2, dtype=np.int64)  # 0, 1 stay.
+        rowmap[out] = row_all[offset:offset + len(out)]
+        offset += len(out)
+        slot_row[out_slot] = rowmap[bdd.root_ptr]
+        rowmaps.append(rowmap)
+    var_row = slot_row[np.concatenate(vars_ + [empty])][order]
+    low_row = np.concatenate([r[lo] for r, lo in zip(rowmaps, lows)]
+                             + [empty])[order]
+    high_row = np.concatenate([r[hi] for r, hi in zip(rowmaps, highs)]
+                              + [empty])[order]
+
+    d_sorted = d_all[order]
+    bounds = np.flatnonzero(np.diff(d_sorted)) + 1
+    levels = []
+    for start, stop in zip(np.r_[0, bounds], np.r_[bounds, len(order)]):
+        if stop > start:
+            rows = np.concatenate([var_row[start:stop], low_row[start:stop],
+                                   high_row[start:stop]]).astype(np.int32)
+            levels.append((rows, base + int(start)))
+    n_rows = base + len(order)
+    return FusedChain(n_rows=n_rows, n_basic=n_basic, levels=levels,
+                      top_row=int(slot_row[top_slot]),
+                      segments=_segments(levels, n_rows))
+
+
+def _segments(levels, scratch: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Group consecutive levels into padded ``lax.scan`` segments."""
+    groups: list[list[tuple[np.ndarray, int]]] = []
+    width = 0
+    for level in levels:
+        n = len(level[0]) // 3
+        if not groups or n > width or 4 * n < width:
+            groups.append([])
+            width = 1 << max(n - 1, 0).bit_length()
+        groups[-1].append(level)
+    segments = []
+    for group in groups:
+        width = 1 << max(max(len(r) // 3 for r, _ in group) - 1,
+                         0).bit_length()
+        rows = np.full((len(group), 3, width), scratch, dtype=np.int32)
+        out = np.full((len(group), width), scratch, dtype=np.int32)
+        for i, (level_rows, out_start) in enumerate(group):
+            n = len(level_rows) // 3
+            rows[i, :, :n] = level_rows.reshape(3, n)
+            out[i, :n] = np.arange(out_start, out_start + n)
+        segments.append((rows.reshape(len(group), 3 * width), out))
+    return segments
+
+
+def fused_probability(fused: FusedChain,
+                      basic_p: jnp.ndarray) -> jnp.ndarray:
+    """Exact top probability of a :class:`FusedChain`.
+
+    ``basic_p``: (..., n_basic); returns (...).  The value matrix is
+    node-major (``(rows, trials)``), so every gather reads whole rows.
+    """
+    batch_shape = basic_p.shape[:-1]
+    n_trials = math.prod(batch_shape)
+    p_nm = jnp.reshape(basic_p, (n_trials, fused.n_basic)).T
+    vals = jnp.concatenate([
+        jnp.zeros((1, n_trials), basic_p.dtype),
+        jnp.ones((1, n_trials), basic_p.dtype), p_nm,
+        jnp.zeros((fused.n_rows - 1 - fused.n_basic, n_trials),
+                  basic_p.dtype)], axis=0)       # Last row: scratch.
+
+    def level(vals, step):
+        # One gather per level: decision, low and high rows stacked.
+        rows, out = step
+        p, lo, hi = jnp.reshape(vals[rows], (3, -1, n_trials))
+        return vals.at[out].set(p * hi + (1.0 - p) * lo), None
+
+    for rows, out in fused.segments:
+        vals, _ = jax.lax.scan(level, vals,
+                               (jnp.asarray(rows), jnp.asarray(out)))
+    return jnp.reshape(vals[fused.top_row], batch_shape)

@@ -1,7 +1,7 @@
 """Expression tape compiler: MEF expression DAG -> one batched JAX program.
 
 Replaces the reference's recursive scalar interpreter (SURVEY.md §3.2-3.3)
-with a TPU-native design:
+with an accelerator-friendly design:
 
 * The expression DAG is flattened into a **static SSA tape** (one slot per
   unique node, deduplicated by object identity). Shared parameters are
@@ -46,6 +46,10 @@ from ..mef.expr.random_deviate import (BetaDeviate, GammaDeviate, Histogram,
 from ..mef.expr.test_event import TestFunctionalEvent, TestInitiatingEvent
 
 __all__ = ["ExpressionTape"]
+
+#: Deviate kinds evaluated as vectorized groups when their arguments are
+#: constants (the usual basic-event form).
+_LEAF_KINDS = ("uniform-deviate", "normal-deviate", "lognormal-deviate")
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +175,7 @@ class ExpressionTape:
         self._n_slots = 0
         self._out_slots: list[int] = []
         self.n_deviates = 0
+        self._groups: list[tuple] | None = None
 
     # ==================================================================
     # Build.
@@ -230,8 +235,8 @@ class ExpressionTape:
         if isinstance(expr, ExternExpression):
             raise LogicError(
                 "extern-function expressions with stochastic or "
-                "time-dependent arguments cannot be compiled to the TPU "
-                "tape; make them deterministic or evaluate on the host.")
+                "time-dependent arguments cannot be compiled to the "
+                "device tape; make them deterministic or evaluate on the host.")
 
         arg_slots = [self._visit(a) for a in expr.args]
 
@@ -271,6 +276,65 @@ class ExpressionTape:
     # Evaluate.
     # ==================================================================
 
+    def _leaf_groups(self) -> list[tuple]:
+        """Deviates whose arguments are all constants, grouped by kind.
+
+        A plant model has one such deviate per basic event; drawn one op
+        at a time they cost tens of thousands of dispatches per call, so
+        each group evaluates as one vectorized draw (``vmap`` over the
+        same ``fold_in(key, slot)`` keys: the same numbers per slot).
+        Entries: ``(kind, aux, slots, args)`` with ``args`` (k, arity).
+        """
+        if self._groups is None:
+            by_kind: dict[tuple, list[int]] = {}
+            for kind, slot, arg_slots, aux in self._ops:
+                if kind in _LEAF_KINDS and all(
+                        self._ops[s][0] == "const" for s in arg_slots):
+                    by_kind.setdefault((kind, aux), []).append(slot)
+            self._groups = [
+                (kind, aux, np.asarray(slots),
+                 np.asarray([[self._ops[a][3] for a in self._ops[s][2]]
+                             for s in slots], dtype=np.float64))
+                for (kind, aux), slots in by_kind.items()]
+        return self._groups
+
+    @staticmethod
+    def _deviates(kind, aux, cols, slots, key, n_trials):
+        """Means, or samples when ``key`` is given, of ``len(slots)``
+        deviates of one leaf kind: the one sampler per kind.
+
+        ``cols``: one array per argument, each with a leading axis of
+        ``len(slots)`` that broadcasts against the (k, n_trials) draw.
+        Slot ``s`` draws with ``fold_in(key, s)``.  Returns a leading-k
+        array.
+        """
+        def draw(sampler):
+            return jax.vmap(lambda s: sampler(jax.random.fold_in(key, s),
+                                              (n_trials,)))(
+                jnp.asarray(slots, dtype=jnp.uint32))
+        if kind == "uniform-deviate":
+            lo, hi = cols
+            if key is None:
+                return (lo + hi) / 2
+            return lo + (hi - lo) * draw(jax.random.uniform)
+        if kind == "normal-deviate":
+            mean, sigma = cols
+            if key is None:
+                return mean
+            return mean + sigma * draw(jax.random.normal)
+        if aux == "normal":                      # lognormal (mu, sigma)
+            mu, sigma = cols
+            if key is None:
+                return jnp.exp(mu + sigma * sigma / 2)
+            return jnp.exp(mu + sigma * draw(jax.random.normal))
+        mean, ef, level = cols                   # lognormal (mean, EF)
+        if key is None:
+            return mean
+        z_level = jax.scipy.special.ndtri((1.0 + level) / 2.0)
+        sigma = jnp.log(ef) / z_level
+        mu = jnp.log(mean) - sigma * sigma / 2
+        return jnp.exp(mu + sigma * draw(jax.random.normal))
+
     def _run(self, mission_time, key=None, n_trials: int | None = None):
         """Interpret the tape; sample mode iff ``key`` is given."""
         sampling = key is not None
@@ -282,46 +346,40 @@ class ExpressionTape:
         def draw_shape():
             return (n_trials,) if sampling else ()
 
+        # Grouped leaf deviates: one matrix per group, rows read lazily.
+        grouped: dict[int, tuple[int, int]] = {}
+        matrices = []
+        for g, (kind, aux, slots, args) in enumerate(self._leaf_groups()):
+            trial_axis = (1,) if sampling else ()
+            cols = [jnp.reshape(jnp.asarray(args[:, j]),
+                                (len(slots),) + trial_axis)
+                    for j in range(args.shape[1])]
+            matrices.append(self._deviates(kind, aux, cols, slots, key,
+                                           n_trials))
+            for row, slot in enumerate(slots.tolist()):
+                grouped[slot] = (g, row)
+
+        def value(slot: int):
+            if values[slot] is None and slot in grouped:
+                g, row = grouped[slot]
+                values[slot] = matrices[g][row]
+            return values[slot]
+
         for kind, slot, arg_slots, aux in self._ops:
-            a = [values[s] for s in arg_slots]
+            if slot in grouped:
+                continue
             if kind == "const":
-                values[slot] = jnp.asarray(aux, dtype=jnp.float64)
-            elif kind == "mission-time":
+                values[slot] = np.float64(aux)
+                continue
+            a = [value(s) for s in arg_slots]
+            if kind == "mission-time":
                 values[slot] = mission_time
             elif kind == "alias":
                 values[slot] = a[0]
-            elif kind == "uniform-deviate":
-                lo, hi = a
-                if sampling:
-                    u = jax.random.uniform(deviate_key(slot), draw_shape())
-                    values[slot] = lo + (hi - lo) * u
-                else:
-                    values[slot] = (lo + hi) / 2
-            elif kind == "normal-deviate":
-                mean, sigma = a
-                if sampling:
-                    z = jax.random.normal(deviate_key(slot), draw_shape())
-                    values[slot] = mean + sigma * z
-                else:
-                    values[slot] = mean
-            elif kind == "lognormal-deviate":
-                if aux == "normal":
-                    mu, sigma = a
-                    if sampling:
-                        z = jax.random.normal(deviate_key(slot), draw_shape())
-                        values[slot] = jnp.exp(mu + sigma * z)
-                    else:
-                        values[slot] = jnp.exp(mu + sigma * sigma / 2)
-                else:
-                    mean, ef, level = a
-                    z_level = jax.scipy.special.ndtri((1.0 + level) / 2.0)
-                    sigma = jnp.log(ef) / z_level
-                    mu = jnp.log(mean) - sigma * sigma / 2
-                    if sampling:
-                        z = jax.random.normal(deviate_key(slot), draw_shape())
-                        values[slot] = jnp.exp(mu + sigma * z)
-                    else:
-                        values[slot] = mean
+            elif kind in _LEAF_KINDS:
+                values[slot] = self._deviates(
+                    kind, aux, [jnp.asarray(x)[None] for x in a], [slot],
+                    key, n_trials)[0]
             elif kind == "gamma-deviate":
                 k, theta = a
                 if sampling:
@@ -385,11 +443,43 @@ class ExpressionTape:
 
         # Mean mode broadcasts to the mission-time shape (time-step
         # sweeps pass a vector of times); sample mode to the trials axis.
+        # Grouped outputs leave their matrices in one gather per group.
         out_shape = draw_shape() if sampling else jnp.shape(mission_time)
-        outs = [jnp.broadcast_to(values[s], out_shape)
-                for s in self._out_slots]
-        return jnp.stack([jnp.asarray(o, dtype=jnp.float64) for o in outs],
-                         axis=-1)
+        pieces, order = [], []
+        for g, matrix in enumerate(matrices):
+            rows = [(i, grouped[s][1]) for i, s in enumerate(self._out_slots)
+                    if grouped.get(s, (None,))[0] == g]
+            if rows:
+                picked = matrix[np.asarray([r for _i, r in rows])]
+                pieces.append(jnp.broadcast_to(
+                    jnp.reshape(picked, (len(rows),) + (1,) * (
+                        len(out_shape) - picked.ndim + 1) + picked.shape[1:]),
+                    (len(rows),) + tuple(out_shape)))
+                order += [i for i, _r in rows]
+        rest = [i for i, s in enumerate(self._out_slots) if s not in grouped]
+        host = [i for i in rest
+                if isinstance(values[self._out_slots[i]], np.floating)]
+        traced = [i for i in rest if i not in set(host)]
+        if host:                  # Constants: one host-built array.
+            consts = np.asarray([values[self._out_slots[i]] for i in host])
+            pieces.append(jnp.broadcast_to(
+                jnp.reshape(jnp.asarray(consts),
+                            (len(host),) + (1,) * len(out_shape)),
+                (len(host),) + tuple(out_shape)))
+            order += host
+        if traced:
+            pieces.append(jnp.stack(
+                [jnp.broadcast_to(jnp.asarray(values[self._out_slots[i]],
+                                              dtype=jnp.float64), out_shape)
+                 for i in traced]))
+            order += traced
+        if not pieces:
+            return jnp.zeros(tuple(out_shape) + (0,), jnp.float64)
+        stacked = jnp.concatenate(
+            [piece.astype(jnp.float64) for piece in pieces], axis=0)
+        if order != list(range(len(order))):
+            stacked = stacked[np.argsort(np.asarray(order))]
+        return jnp.moveaxis(stacked, 0, -1)
 
     def evaluate_mean(self, mission_time) -> jnp.ndarray:
         """Mean values, shape (n_outputs,)."""

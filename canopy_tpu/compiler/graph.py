@@ -1,6 +1,6 @@
 """Gate-graph compiler: MEF formulas -> level-scheduled array blocks.
 
-This is the bridge between the front-end object model and the TPU engines,
+This is the bridge between the front-end object model and the device engines,
 replacing the reference's absent ``src/bool/bool`` evaluation engine
 (SURVEY.md §2.6) with a design chosen for XLA:
 
@@ -392,7 +392,7 @@ def merge_prod_level(level: LevelBlock) -> ProdBlock:
     """Merge a level's fan-in-bucketed prod blocks into one padded ELL
     block (rows stay slot-ordered; the level's output range stays
     contiguous).  Raises for pair/count levels — callers that need the
-    prod-only fast path (BSR, pipeline, block-gather) share this.
+    prod-only fast path (BSR, pipeline) share this.
     """
     if level.pairs or level.counts:
         raise LogicError("level contains non-product-family gates")
@@ -419,6 +419,41 @@ def merge_prod_level(level: LevelBlock) -> ProdBlock:
         inv_out=inv_out)
 
 
+def _emit_gate_ops(tree: CompiledTree):
+    """Per-gate ``(kind, out_slot, args, aux)`` rows from the level blocks.
+
+    ``args`` is a list of ``(slot, flag)`` in formula order (padding
+    dropped); ``aux`` is ``inv_out`` for ``prod``, ``is_iff`` for
+    ``pair`` and the ``(min, max)`` count window for ``count``.  Used to
+    rebuild gate semantics for array-backed trees that carry no MEF gate
+    objects (BDD construction, module detection).
+    """
+    ops = []
+    for level in tree.levels:
+        for kind, b in level.iter_blocks():
+            if kind == "prod":
+                for g in range(b.n_gates):
+                    args = [(int(b.arg_idx[g, f]), bool(b.arg_flip[g, f]))
+                            for f in range(b.arg_idx.shape[1])
+                            if b.arg_mask[g, f]]
+                    ops.append(("prod", int(b.out_idx[g]), args,
+                                bool(b.inv_out[g])))
+            elif kind == "pair":
+                for g in range(b.n_gates):
+                    args = [(int(b.arg_idx[g, f]), bool(b.arg_neg[g, f]))
+                            for f in range(2)]
+                    ops.append(("pair", int(b.out_idx[g]), args,
+                                bool(b.is_iff[g])))
+            else:
+                for g in range(b.n_gates):
+                    args = [(int(b.arg_idx[g, f]), bool(b.arg_neg[g, f]))
+                            for f in range(b.arg_idx.shape[1])
+                            if b.arg_mask[g, f]]
+                    ops.append(("count", int(b.out_idx[g]), args,
+                                (int(b.min_num[g]), int(b.max_num[g]))))
+    return ops
+
+
 def compile_fault_tree(fault_tree, top: Gate | None = None,
                        use_ccf: bool = True) -> CompiledTree:
     """Compile one fault tree, anchored at ``top`` (default: its first
@@ -442,23 +477,30 @@ def prune_to_top_cone(tree: CompiledTree) -> CompiledTree:
     and the rest re-numbered in (level, block, row) order, which keeps
     every block's output range contiguous (the engines'
     dynamic-update-slice invariant) and args-before-gates topology.
-    Top-only queries on large models skip the dead gates entirely —
-    measured on the config-3 1M-gate synthetic the cone is 48k of 1M
-    gates (docs/BENCHMARKS.md).  Per-gate argument lists are unchanged,
-    so the top value is bit-identical to the full-tree evaluation.
+    Top-only queries on large models skip the dead gates entirely (on
+    the 1M-gate uniform synthetic the cone is a few percent of the
+    gates).  Per-gate argument lists are unchanged, so the top value is
+    bit-identical to the full-tree evaluation.  Raises
+    :class:`LogicError` when a gate reads a slot of its own or a later
+    level.
     """
     if tree.top_index is None:
         raise LogicError("prune_to_top_cone needs an anchored top event")
     base = tree.n_basic + tree.n_house
 
     # Reverse reachability from the top, one vectorized pass over the
-    # levels in reverse topological order (args precede gates, so a
-    # single sweep reaches the whole cone; no per-element Python loop —
-    # at config-3 scale the old dict walk cost seconds per build).
+    # levels in reverse topological order.  A single sweep reaches the
+    # whole cone only if every gate reads strictly lower levels, so that
+    # is checked, not assumed: a same-level or forward argument would
+    # silently drop part of the cone.
+    level_of = np.full(tree.n_nodes, -1, dtype=np.int64)
+    for li, level in enumerate(tree.levels):
+        for _kind, b in level.iter_blocks():
+            level_of[np.asarray(b.out_idx)] = li
     in_cone = np.zeros(tree.n_nodes, dtype=bool)
     in_cone[tree.top_index] = True
-    for level in reversed(tree.levels):
-        for _kind, b in level.iter_blocks():
+    for li in range(len(tree.levels) - 1, -1, -1):
+        for _kind, b in tree.levels[li].iter_blocks():
             keep = in_cone[np.asarray(b.out_idx)]
             if not keep.any():
                 continue
@@ -466,7 +508,13 @@ def prune_to_top_cone(tree: CompiledTree) -> CompiledTree:
             mask = getattr(b, "arg_mask", None)
             if mask is not None:
                 args = args[np.asarray(mask)[keep]]
-            in_cone[args.reshape(-1)] = True
+            args = args.reshape(-1)
+            if (level_of[args] >= li).any():
+                bad = int(args[np.argmax(level_of[args] >= li)])
+                raise LogicError(
+                    f"tree is not strictly levelled: a level-{li} gate "
+                    f"reads slot {bad} of level {int(level_of[bad])}")
+            in_cone[args] = True
     n_cone = int(in_cone[base:].sum())
     if n_cone == tree.n_gates:
         return tree

@@ -13,11 +13,11 @@ realized array-side:
 * detection runs on the compiled slot graph (one DFS, visit dates,
   bottom-up min/max combine);
 * each module compiles to a :class:`~canopy_tpu.compiler.bdd.CompiledBdd`
-  whose variables point at *global* value-vector slots, so evaluation is
-  a chain of the standard batched BDD passes writing back into the same
-  value vector — module outputs become inputs of enclosing modules with
-  no host round-trips, and the whole chain stays `jit`/`vmap`/`grad`
-  compatible.
+  whose variables point at *global* value-vector slots; evaluation fuses
+  every module's Shannon nodes into one level schedule over one value
+  matrix (:class:`~canopy_tpu.compiler.bdd.FusedChain`) — module outputs
+  become inputs of enclosing modules with no host round-trips, and the
+  whole chain stays `jit`/`vmap`/`grad` compatible.
 """
 
 from __future__ import annotations
@@ -25,12 +25,12 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-import numpy as np
 
 from ..errors import LogicError
 from ..mef.event import BasicEvent, Gate, HouseEvent
-from .bdd import BddForest, CompiledBdd, NativeBddForest, _schedule
-from .graph import CompiledTree
+from .bdd import (BddForest, CompiledBdd, FusedChain, NativeBddForest,
+                  _schedule, fuse_chain, fused_probability)
+from .graph import CompiledTree, _emit_gate_ops
 
 __all__ = ["find_modules", "build_modular_bdd", "modular_probability",
            "ModularBdd"]
@@ -75,7 +75,6 @@ def find_modules(tree: CompiledTree) -> list[int]:
     else:
         # Array-backed tree (no MEF gate objects): argument structure
         # straight from the level-block rows.
-        from .schedule import _emit_gate_ops
         for _kind, out, args, _aux in _emit_gate_ops(tree):
             args_of[out] = [s for s, _f in args]
 
@@ -136,6 +135,8 @@ class ModularBdd:
     n_nodes: int
     n_basic: int
     top_index: int
+    _fused: FusedChain | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def total_nodes(self) -> int:
@@ -144,6 +145,13 @@ class ModularBdd:
     @property
     def largest(self) -> int:
         return max((bdd.n_nodes for bdd, _ in self.chain), default=0)
+
+    def fused(self) -> FusedChain:
+        """The chain's :class:`FusedChain` (built once, then cached)."""
+        if self._fused is None:
+            self._fused = fuse_chain(self.chain, self.n_basic,
+                                     self.top_index)
+        return self._fused
 
 
 def build_modular_bdd(tree: CompiledTree, max_nodes: int = 2_000_000,
@@ -163,7 +171,6 @@ def build_modular_bdd(tree: CompiledTree, max_nodes: int = 2_000_000,
     if not gate_of_slot:
         # Array-backed tree: gate semantics from the level-block rows
         # (the same rows every engine evaluates).
-        from .schedule import _emit_gate_ops
         for kind, out, args, aux in _emit_gate_ops(tree):
             rows_of_slot[out] = (kind, args, aux)
 
@@ -284,21 +291,9 @@ def modular_probability(modular: ModularBdd,
                         basic_p: jnp.ndarray) -> jnp.ndarray:
     """Exact top probability via the module chain.
 
-    ``basic_p``: (..., n_basic). Each module's BDD evaluates against the
-    *global* value vector and writes its probability into its gate slot,
-    feeding enclosing modules.
+    ``basic_p``: (..., n_basic). Every module's BDD evaluates in one
+    fused level schedule (:class:`~canopy_tpu.compiler.bdd.FusedChain`):
+    a module's output feeds the nodes of enclosing modules that decide on
+    it.
     """
-    from ..engine.bdd_eval import bdd_probability
-
-    batch_shape = basic_p.shape[:-1]
-    vals = jnp.concatenate([
-        basic_p,
-        jnp.zeros(batch_shape + (modular.n_nodes - modular.n_basic,),
-                  dtype=basic_p.dtype)], axis=-1)
-    result = None
-    for bdd, out_slot in modular.chain:
-        value = bdd_probability(bdd, vals)
-        if out_slot == modular.top_index:
-            result = value
-        vals = vals.at[..., out_slot].set(value)
-    return result
+    return fused_probability(modular.fused(), basic_p)

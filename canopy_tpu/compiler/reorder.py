@@ -1,6 +1,6 @@
 """Locality-manufacturing slot reordering (the graph-partitioning pass).
 
-The BSR/MXU engine (``ops/bsr_propagate``) pays for every 128-column
+The BSR matmul engine (``ops/bsr_propagate``) pays for every 128-column
 block a gate row-block touches; its viability is a pure function of
 *argument locality* — how tightly each row block's argument columns
 cluster.  Real plant models have that locality structurally (components
@@ -297,10 +297,10 @@ def _hot_first_perm(tree: CompiledTree, threshold: int = 2) -> np.ndarray:
 
     Shared events are referenced from chunks all over the matrix;
     first-use placement puts each next to ONE consumer and leaves every
-    other reference far away, inflating the block-gather kernel's
-    per-chunk DMA spans.  Pulling them into a compact leading region
-    lets a handful of resident slabs cover all of them, so the
-    remaining (single-consumer) arguments keep their tight DFS ranges.
+    other reference far away, widening every block's argument span.
+    Pulling them into a compact leading region keeps them in a few
+    column blocks, so the remaining (single-consumer) arguments keep
+    their tight DFS ranges.
     Gates are NOT moved: relocating a gate for its consumers' benefit
     scatters its own argument range (measured: spans get worse)."""
     counts = _consumer_counts(tree)
@@ -355,11 +355,10 @@ def locality_reorder(tree: CompiledTree, sweeps: int = 0,
 
     ``group_flips`` appends the flip-majority grouping pass (see
     :func:`_flip_group_perm`) — a ~20 % BSR-fill win but it interleaves
-    subtree runs and inflates the block-gather kernel's DMA spans ~18x
-    (measured), so it is opt-in for BSR users only.  ``hot_first``
+    subtree runs, so it is opt-in for BSR users only.  ``hot_first``
     applies the multi-consumer grouping pass right after the base
-    ordering (see :func:`_hot_first_perm`) — required by the
-    block-gather kernel's resident-slab scheme.
+    ordering (see :func:`_hot_first_perm`), so slots read by many
+    consumers sit together.
 
     Results of propagation are bit-identical to the input tree (see
     module docstring); only slot numbering — and therefore BSR fill,

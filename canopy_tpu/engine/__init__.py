@@ -1,4 +1,4 @@
-"""Quantification engines: JAX/XLA/Pallas compute paths."""
+"""Quantification engines: JAX/XLA compute paths."""
 
 from .propagate import (make_propagator, propagate_probability,  # noqa: F401
                         top_event_probability)

@@ -25,6 +25,7 @@ with phase-local house states and scaled mission time.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import time
 from typing import Any, Optional
@@ -41,7 +42,7 @@ from ..errors import LogicError
 from ..mef.event import BasicEvent, Gate
 from ..mef.model import Model
 from ..settings import Algorithm, Approximation, Settings
-from .bdd_eval import bdd_probability, make_modular_evaluator
+from .bdd_eval import bdd_probability, make_bdd_evaluator
 from .cutset_quantify import (build_cutset_matrix, mcub,
                               product_probabilities, rare_event)
 from .event_tree_walk import walk_event_tree
@@ -200,7 +201,6 @@ class RiskAnalysis:
         # Modular decomposition (Dutuit-Rauzy) keeps per-module BDDs
         # small; a tree with no modules degenerates to one monolithic BDD.
         top_fn = None
-        modular_bdd = None
         method = self._method_name()
         if settings.algorithm() == Algorithm.BDD and \
                 settings.approximation() == Approximation.NONE:
@@ -210,8 +210,8 @@ class RiskAnalysis:
                                                 modular_probability)
                 modular = build_modular_bdd(tree,
                                             house_states=np.asarray(house))
-                modular_bdd = modular
-                top_fn = lambda p: modular_probability(modular, p)  # noqa: E731
+                top_fn = jax.jit(functools.partial(modular_probability,
+                                                   modular))
                 self._timings[f"bdd:{top.id}"] = time.perf_counter() - t0
             except BddBlowupError:
                 method = "bdd-fallback/direct-propagation"
@@ -322,27 +322,7 @@ class RiskAnalysis:
 
         if settings.importance_analysis():
             t0 = time.perf_counter()
-            # On TPU the backward pass runs as the explicit adjoint
-            # streaming kernel (ops/adjoint_kernel.py) instead of XLA
-            # autodiff through the gather engine — same measures, f32
-            # kernel precision (the measures are ratios of a multilinear
-            # function; see docs/CAPABILITIES.md).
-            imp_fn = top_fn
-            if jax.default_backend() == "tpu":
-                if modular_bdd is not None:
-                    ev = make_modular_evaluator(modular_bdd,
-                                                differentiable=True)
-                    if ev.method == "bdd-stream-f32":
-                        n_b = tree.n_basic
-                        imp_fn = lambda p: ev(jnp.broadcast_to(  # noqa: E731
-                            p.astype(jnp.float32), (1024, n_b))).mean()
-                elif top_fn is None:
-                    from .importance import make_stream_importance_fn
-                    stream_fn = make_stream_importance_fn(
-                        tree, np.asarray(house))
-                    if stream_fn is not None:
-                        imp_fn = stream_fn
-            imp = importance_measures(tree, mean_p, house, top_fn=imp_fn)
+            imp = importance_measures(tree, mean_p, house, top_fn=top_fn)
             if products is not None:
                 imp.occurrences = occurrence_counts(products, tree.n_basic)
             result.importance = imp.as_table(tree)
@@ -355,32 +335,6 @@ class RiskAnalysis:
             # the configured cut-set approximation per trial (the batched
             # SpMM configuration), otherwise direct propagation.
             unc_fn = top_fn
-            unc_method = None
-            if modular_bdd is not None and jax.default_backend() == "tpu":
-                # Exact per-trial evaluation at kernel speed: the module
-                # chain streamed as fused Shannon muxes (per-shape
-                # fallback to the level-scheduled evaluation inside).
-                # The kernels compute in f32 — the recorded method tag
-                # carries the precision so the demotion from the f64
-                # level-scheduled evaluation is never silent.
-                from .bdd_eval import make_modular_evaluator
-                unc_fn = make_modular_evaluator(modular_bdd)
-                # Resolve the tag from the batch sizes that actually
-                # run: uncertainty_analysis splits the trials into
-                # batch_size chunks (plus a remainder), and off the
-                # 1024-trial grid each chunk falls back to the f64
-                # level evaluation — the tag must reflect every chunk,
-                # not the total trial count.
-                n_tot = settings.num_trials()
-                bsz = settings.batch_size()
-                if bsz > 1 and bsz < n_tot:
-                    chunk_sizes = {bsz}
-                    if n_tot % bsz:
-                        chunk_sizes.add(n_tot % bsz)
-                else:
-                    chunk_sizes = {n_tot}
-                tags = sorted({unc_fn.method_for(c) for c in chunk_sizes})
-                unc_method = "+".join(tags)
             if unc_fn is None and products is not None and \
                     settings.approximation() in (Approximation.RARE_EVENT,
                                                  Approximation.MCUB):
@@ -406,8 +360,6 @@ class RiskAnalysis:
                 "quantiles": unc.quantiles.tolist(),
                 "histogram_edges": unc.histogram_edges.tolist(),
                 "histogram_density": unc.histogram_density.tolist()}
-            if unc_method is not None:
-                result.uncertainty["method"] = unc_method
             self._timings[f"uncertainty:{top.id}"] = time.perf_counter() - t0
 
         if settings.safety_integrity_levels():
@@ -785,8 +737,8 @@ class RiskAnalysis:
         frequency, and every collected expression, so shared parameters
         sample once per trial (the reference's memoize-per-trial
         semantics, §3.3). Sequence condition tops evaluate exactly over
-        the BDDs the point estimates already built (``root_bdds``,
-        streamed on TPU); otherwise by direct propagation, and each
+        the BDDs the point estimates already built (``root_bdds``);
+        otherwise by direct propagation, and each
         sequence's dict carries a ``method`` field so demotion from the
         exactness ladder is never silent.
         """
@@ -818,16 +770,9 @@ class RiskAnalysis:
         if root_bdds is not None:
             # Reuse the exact BDDs the point estimates built (uniform
             # house: one per root with shared states; non-uniform: one
-            # per root with its own states) — no rebuild. The method tag
-            # carries the evaluator's compute precision (the streaming
-            # kernels run f32) so the demotion is recorded, not silent.
-            from .bdd_eval import make_bdd_evaluator
+            # per root with its own states) — no rebuild.
             for k, bdd in enumerate(root_bdds):
-                evaluator = make_bdd_evaluator(bdd)
-                top_trials[k] = evaluator(basic_s)
-                per_call = evaluator.method_for(basic_s.shape[0])
-                if per_call != "bdd":
-                    method = per_call
+                top_trials[k] = make_bdd_evaluator(bdd)(basic_s)
         if len(top_trials) != len(live_gates):
             top_trials = {}
             method = "direct-propagation"

@@ -6,226 +6,32 @@ child values + one fused multiply-add per node —
     P(node) = p[var] * P(high) + (1 - p[var]) * P(low)
 
 with terminals pinned to 0/1. Exact for any DAG (shared events included),
-`vmap`-batched over a trials axis for exact epistemic uncertainty, and
+batched over a trials axis for exact epistemic uncertainty, and
 `grad`-able for exact Birnbaum importances (the top probability is
 multilinear in p, so reverse-mode through this evaluator *is* the exact
-partial-derivative vector).
+partial-derivative vector).  A BDD runs as a one-module
+:class:`~canopy_tpu.compiler.bdd.FusedChain`, the program the modular
+chain runs too.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
-from ..compiler.bdd import CompiledBdd
+from ..compiler.bdd import CompiledBdd, fused_probability
 
-__all__ = ["bdd_probability", "make_bdd_evaluator",
-           "make_modular_evaluator"]
-
-
-def _tagged(jitted, method: str, streams: bool = False):
-    """Wrap a jitted evaluator with ``.method`` naming the compute path
-    (and its precision) so callers can record it instead of silently
-    demoting — the streaming kernels evaluate in f32 while the
-    level-scheduled fallback keeps the input dtype (f64 by default).
-
-    ``.method`` is the tag for batches that hit the streaming path;
-    ``.method_for(n_trials)`` resolves the tag for a concrete batch
-    size (off the 1024-trial grid the call runs the level evaluation,
-    and the recorded precision must say so)."""
-    def call(*args, **kwargs):
-        return jitted(*args, **kwargs)
-    call.method = method
-
-    def method_for(n_trials: int) -> str:
-        if streams and n_trials % 1024 == 0:
-            return method
-        return "bdd"
-    call.method_for = method_for
-    return call
+__all__ = ["bdd_probability", "make_bdd_evaluator"]
 
 
 def bdd_probability(bdd: CompiledBdd, basic_p: jnp.ndarray) -> jnp.ndarray:
     """Top-event probability; ``basic_p``: (..., n_basic); returns (...)."""
-    if bdd.n_nodes == 0:
-        value = 1.0 if bdd.root_ptr == 1 else 0.0
-        return jnp.broadcast_to(jnp.asarray(value, dtype=basic_p.dtype),
-                                basic_p.shape[:-1])
-    batch_shape = basic_p.shape[:-1]
-    vals = jnp.concatenate([
-        jnp.zeros(batch_shape + (1,), dtype=basic_p.dtype),
-        jnp.ones(batch_shape + (1,), dtype=basic_p.dtype),
-        jnp.zeros(batch_shape + (bdd.n_nodes,), dtype=basic_p.dtype),
-    ], axis=-1)
-    for var_slot, low_ptr, high_ptr, out_ptr in bdd.levels:
-        p = basic_p[..., var_slot]
-        lo = vals[..., low_ptr]
-        hi = vals[..., high_ptr]
-        vals = vals.at[..., out_ptr].set(p * hi + (1.0 - p) * lo)
-    return vals[..., bdd.root_ptr]
+    return fused_probability(bdd.fused(), basic_p)
 
 
-#: Below this node count the level-scheduled evaluation is already
-#: cheap and a Mosaic kernel compile (tens of seconds remotely) never
-#: pays for itself.
-_STREAM_MIN_NODES = 256
-
-
-def _make_diff_stream(program, _interpret):
-    """Differentiable mux-stream call for one BDD program (adjoint
-    kernels, ``ops/adjoint_kernel.py``), or ``None`` if the adjoint
-    cannot be scheduled — callers keep the level-scheduled evaluation,
-    which JAX differentiates natively."""
-    import numpy as np
-
-    from ..errors import LogicError
-    from ..ops.adjoint_kernel import (compile_adjoint,
-                                      make_differentiable_stream)
-    from ..ops.stream_kernel import stage_basic
-    try:
-        aprog = compile_adjoint(program)
-    except LogicError:
-        return None
-    f = make_differentiable_stream(aprog, np.zeros(0, np.float32),
-                                   interpret=_interpret)
-
-    def call(values):
-        cols = values[:, jnp.asarray(program.stage_cols)] \
-            if program.stage_cols is not None else values
-        return f(stage_basic(program, cols.astype(jnp.float32)))
-    return call
-
-
-def make_bdd_evaluator(bdd: CompiledBdd, engine: str = "auto",
-                       _interpret: bool = False,
-                       min_nodes: int = _STREAM_MIN_NODES,
-                       differentiable: bool = False):
-    """A jitted exact evaluator ``f(basic_p) -> top probability``.
-
-    On a TPU backend with a schedulable BDD, (n_trials, n_basic) batches
-    on the 1024-trial grid run through the streaming mux kernel
-    (``ops/stream_kernel.stream_bdd_probability`` — one fused Shannon
-    mux per node at full VPU width); every other shape falls back to the
-    level-scheduled gather evaluation above. Both are exact.
-
-    ``differentiable=True`` routes the stream path through the adjoint
-    kernels (``ops/adjoint_kernel.py``) so ``jax.grad`` through the
-    evaluator runs at kernel speed — exact Birnbaum importances without
-    falling back to the gather engine's autodiff.
-    """
-    program = None
-    if engine in ("auto", "stream") and \
-            (jax.default_backend() == "tpu" or _interpret) and \
-            (bdd.n_nodes >= min_nodes or engine == "stream"):
-        from ..errors import LogicError
-        from ..ops.stream_kernel import compile_bdd_stream
-        try:
-            program = compile_bdd_stream(bdd)
-        except LogicError:
-            if engine == "stream":
-                raise
-    diff_call = _make_diff_stream(program, _interpret) \
-        if differentiable and program is not None else None
-
-    def fn(basic_p):
-        if program is not None and basic_p.ndim == 2 \
-                and basic_p.shape[0] % 1024 == 0:
-            if diff_call is not None:
-                return diff_call(basic_p)
-            if differentiable:
-                # Adjoint unschedulable: stay on the natively
-                # differentiable level evaluation (the raw stream call
-                # has no VJP rule).
-                return bdd_probability(bdd, basic_p)
-            from ..ops.stream_kernel import stream_bdd_probability
-            return stream_bdd_probability(program, basic_p,
-                                          interpret=_interpret)
-        return bdd_probability(bdd, basic_p)
-    streams = program is not None and (not differentiable
-                                       or diff_call is not None)
-    return _tagged(jax.jit(fn), "bdd-stream-f32" if streams else "bdd",
-                   streams=streams)
-
-
-def make_modular_evaluator(modular, engine: str = "auto",
-                           _interpret: bool = False,
-                           min_nodes: int = _STREAM_MIN_NODES,
-                           differentiable: bool = False):
-    """A jitted exact evaluator over a modular BDD chain.
-
-    Like :func:`make_bdd_evaluator` but for
-    :class:`~canopy_tpu.compiler.modules.ModularBdd`: on TPU each
-    module's BDD runs as its own streaming mux kernel, reading the
-    decision variables it needs (basics + collapsed inner-module
-    outputs) from the growing value matrix. Constant modules fold to
-    their value; any unschedulable module falls the whole chain back to
-    the level-scheduled evaluation.
-    """
-    from ..compiler.modules import modular_probability
-
-    programs = None
-    module_bdds = None
-    if engine in ("auto", "stream") and \
-            (jax.default_backend() == "tpu" or _interpret):
-        from ..errors import LogicError
-        from ..ops.stream_kernel import compile_bdd_stream
-        try:
-            programs = []
-            module_bdds = []
-            for bdd, out_slot in modular.chain:
-                root = bdd.resolved_root()
-                module_bdds.append(bdd)
-                if root <= 1:
-                    programs.append((float(root), out_slot))
-                elif bdd.n_nodes < min_nodes and engine != "stream":
-                    # Tiny module: the level evaluation beats a kernel
-                    # compile; mixed chains are fine (same value matrix).
-                    programs.append((bdd, out_slot))
-                else:
-                    programs.append((compile_bdd_stream(bdd), out_slot))
-        except LogicError:
-            programs = None
-            if engine == "stream":
-                raise
-    diff_calls = None
-    if differentiable and programs is not None:
-        # Per-module adjoint wrappers; a module whose adjoint cannot be
-        # scheduled demotes to the (natively differentiable) level
-        # evaluation — the chain stays differentiable either way.
-        diff_calls = {}
-        for k, (program, _slot) in enumerate(programs):
-            if not isinstance(program, (float, CompiledBdd)):
-                diff_calls[k] = _make_diff_stream(program, _interpret)
-
-    def fn(basic_p):
-        if programs is None or basic_p.ndim != 2 \
-                or basic_p.shape[0] % 1024:
-            return modular_probability(modular, basic_p)
-        from ..ops.stream_kernel import stream_bdd_probability
-        n_trials = basic_p.shape[0]
-        vals = jnp.concatenate([
-            basic_p.astype(jnp.float32),
-            jnp.zeros((n_trials, modular.n_nodes - modular.n_basic),
-                      jnp.float32)], axis=-1)
-        result = None
-        for k, (program, out_slot) in enumerate(programs):
-            if isinstance(program, float):
-                value = jnp.full((n_trials,), program, jnp.float32)
-            elif isinstance(program, CompiledBdd):
-                value = bdd_probability(program, vals).astype(jnp.float32)
-            elif diff_calls is not None and diff_calls.get(k) is not None:
-                value = diff_calls[k](vals)
-            elif diff_calls is not None:
-                # Adjoint unavailable: level evaluation (differentiable).
-                value = bdd_probability(module_bdds[k],
-                                        vals).astype(jnp.float32)
-            else:
-                value = stream_bdd_probability(program, vals,
-                                               interpret=_interpret)
-            if out_slot == modular.top_index:
-                result = value
-            vals = vals.at[:, out_slot].set(value)
-        return result
-    return _tagged(jax.jit(fn),
-                   "bdd-stream-f32" if programs is not None else "bdd",
-                   streams=programs is not None)
+def make_bdd_evaluator(bdd: CompiledBdd):
+    """A jitted exact evaluator ``f(basic_p) -> top probability``
+    (one compilation per input shape)."""
+    return jax.jit(functools.partial(bdd_probability, bdd))

@@ -10,9 +10,9 @@ axis turns it into the SpMM used by uncertainty propagation.
 Two layouts are built at compile time:
 
 * **padded** (ELL): (n_products, max_order) gather indices + sign + mask;
-  best on TPU for the bounded orders produced by ``limit_order`` (<= 20).
-* **CSR**: indptr/indices/signs for the segment-reduce path and the
-  Pallas kernels (``ops/``).
+  best on accelerators for the bounded orders produced by ``limit_order``
+  (<= 20).
+* **CSR**: indptr/indices/signs for the segment-reduce path.
 
 Approximations (reference ``settings.h:19-22`` semantics):
 
@@ -91,7 +91,7 @@ def product_probabilities(matrix: CutSetMatrix,
     """Per-product probabilities Q_k; batched over leading axes of basic_p.
 
     Padded-gather layout: one gather + masked product-reduce per row —
-    the TPU-friendly ELL SpMV. ``basic_p``: (..., n_basic).
+    the accelerator-friendly ELL SpMV. ``basic_p``: (..., n_basic).
     """
     if matrix.n_products == 0:
         return jnp.zeros(basic_p.shape[:-1] + (0,), dtype=basic_p.dtype)

@@ -1,7 +1,7 @@
 """Importance analysis via automatic differentiation.
 
 The importance surface of the reference Settings
-(``settings.h:262-278``), computed the TPU-native way: because the
+(``settings.h:262-278``), computed by automatic differentiation: because the
 propagated top-event probability is *multilinear* in each basic-event
 probability, the Birnbaum marginal importance factor
 
@@ -30,8 +30,7 @@ import numpy as np
 from ..compiler.graph import CompiledTree
 from .propagate import top_event_probability
 
-__all__ = ["ImportanceResult", "importance_measures",
-           "make_stream_importance_fn", "occurrence_counts"]
+__all__ = ["ImportanceResult", "importance_measures", "occurrence_counts"]
 
 
 @dataclasses.dataclass
@@ -91,67 +90,6 @@ def importance_measures(tree: CompiledTree, basic_p: jnp.ndarray,
         top_probability=float(p_top),
         mif=np.asarray(mif), cif=np.asarray(cif), dif=np.asarray(dif),
         raw=np.asarray(raw), rrw=np.asarray(rrw))
-
-
-def make_stream_importance_fn(tree: CompiledTree,
-                              house_states: np.ndarray | None = None,
-                              interpret: bool = False):
-    """A differentiable ``top_fn(p)`` backed by the adjoint stream
-    kernels (``ops/adjoint_kernel.py``), or ``None`` when the tree has
-    no stream/adjoint schedule (callers keep the gather autodiff).
-
-    The point probability broadcasts onto one (8, 128) trial tile —
-    1024 identical lanes — and the mean folds them back; the VJP runs
-    as the explicit backward streaming kernel instead of XLA autodiff
-    through the gather engine. Direct-propagation semantics (same math
-    as the stream engine; exact-BDD callers use
-    ``make_modular_evaluator(differentiable=True)`` instead).
-    """
-    from ..errors import LogicError
-    from ..ops.adjoint_kernel import (compile_adjoint,
-                                      make_differentiable_stream)
-    from ..ops.stream_kernel import compile_stream, stage_basic
-    try:
-        program = compile_stream(tree)
-        aprog = compile_adjoint(program)
-    except LogicError:
-        # Pool-thrashing trees: the replay engine's adjoint
-        # (compiler/replay_adjoint.py) — importance at spill scale.
-        return _make_replay_importance_fn(tree, house_states, interpret)
-    house = tree.house_state_vector() if house_states is None \
-        else np.asarray(house_states)
-    f = make_differentiable_stream(aprog, house, interpret=interpret)
-
-    def top_fn(p):
-        bp = jnp.broadcast_to(p.astype(jnp.float32), (1024, tree.n_basic))
-        return f(stage_basic(program, bp)).mean()
-    return top_fn
-
-
-def _make_replay_importance_fn(tree: CompiledTree, house_states,
-                               interpret: bool):
-    from ..compiler.replay_adjoint import build_replay_adjoint
-    from ..errors import LogicError
-    from ..ops.replay_adjoint_kernel import make_differentiable_replay
-    from ..ops.stream_kernel import stage_replay
-    try:
-        # Forward segments capped at 2048 ops: the taped forward adds a
-        # tape put per argument, and host tracing of straight-line
-        # Pallas kernels is superlinear in per-kernel size (the ~15k
-        # tile-op wall) — the default 8192-op segments trace for tens
-        # of minutes at plant scale.  The backward splits itself into
-        # ``max_bwd_ops`` sub-kernels (compiler/replay_adjoint.py).
-        aprog = build_replay_adjoint(tree, max_ops_per_segment=2048)
-    except LogicError:
-        return None
-    house = tree.house_state_vector() if house_states is None \
-        else np.asarray(house_states)
-    f = make_differentiable_replay(aprog, house, interpret=interpret)
-
-    def top_fn(p):
-        bp = jnp.broadcast_to(p.astype(jnp.float32), (1024, tree.n_basic))
-        return f(stage_replay(aprog.base, bp)).mean()
-    return top_fn
 
 
 def occurrence_counts(products, n_basic: int) -> np.ndarray:

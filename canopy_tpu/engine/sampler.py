@@ -1,7 +1,7 @@
 """Monte-Carlo state sampling: the aleatory simulation engine.
 
 Replaces the reference's planned data-parallel Boolean evaluation binary
-(``./src/bool/bool``, SURVEY.md §0) with two TPU engines:
+(``./src/bool/bool``, SURVEY.md §0) with two device engines:
 
 * :func:`sample_top_probability` — float 0/1 states, reusing the same
   level blocks as probability propagation (a Bernoulli state is a

@@ -67,8 +67,7 @@ def uncertainty_analysis(tree: CompiledTree, tape: ExpressionTape, key,
     if house_states is None:
         house_states = jnp.asarray(tree.house_state_vector())
     if top_fn is None:
-        # Engine auto-dispatch (fused/stream kernels on TPU, gather
-        # elsewhere) with the analysis' house states baked in.
+        # The gather engine with the analysis' house states baked in.
         top_fn = make_propagator(tree, output="top",
                                  house_states=np.asarray(house_states))
 

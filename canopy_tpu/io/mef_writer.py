@@ -15,7 +15,7 @@ the reader's extractor table.
 
 from __future__ import annotations
 
-from lxml import etree
+import xml.etree.ElementTree as ET
 
 from ..mef.alignment import Alignment
 from ..mef.ccf_group import (AlphaFactorModel, BetaFactorModel, CcfEvent,
@@ -66,53 +66,53 @@ _CCF_MODEL_NAMES = {BetaFactorModel: "beta-factor", MglModel: "MGL",
 
 def _emit_expression(parent, expr) -> None:
     if isinstance(expr, MissionTime):
-        etree.SubElement(parent, "system-mission-time")
+        ET.SubElement(parent, "system-mission-time")
         return
     if isinstance(expr, Parameter):
-        etree.SubElement(parent, "parameter", name=expr.id)
+        ET.SubElement(parent, "parameter", name=expr.id)
         return
     if isinstance(expr, ConstantExpression):
         if expr is PI:
-            etree.SubElement(parent, "pi")
+            ET.SubElement(parent, "pi")
             return
         value = expr.value()
         if value == int(value) and abs(value) < 2**53 and \
                 expr not in (ONE, ZERO):
-            etree.SubElement(parent, "int", value=str(int(value)))
+            ET.SubElement(parent, "int", value=str(int(value)))
         else:
-            etree.SubElement(parent, "float", value=repr(value))
+            ET.SubElement(parent, "float", value=repr(value))
         return
     if isinstance(expr, TestInitiatingEvent):
-        etree.SubElement(parent, "test-initiating-event",
+        ET.SubElement(parent, "test-initiating-event",
                          name=expr.event_name)
         return
     if isinstance(expr, TestFunctionalEvent):
-        etree.SubElement(parent, "test-functional-event",
+        ET.SubElement(parent, "test-functional-event",
                          name=expr.event_name, state=expr.state)
         return
     if isinstance(expr, ExternExpression):
-        el = etree.SubElement(parent, "extern-function",
+        el = ET.SubElement(parent, "extern-function",
                               name=expr.function.name)
         for arg in expr.args:
             _emit_expression(el, arg)
         return
     if isinstance(expr, Histogram):
-        el = etree.SubElement(parent, "histogram")
+        el = ET.SubElement(parent, "histogram")
         _emit_expression(el, expr.boundaries[0])
         for boundary, weight in zip(expr.boundaries[1:], expr.weights):
-            bin_el = etree.SubElement(el, "bin")
+            bin_el = ET.SubElement(el, "bin")
             _emit_expression(bin_el, boundary)
             _emit_expression(bin_el, weight)
         return
     if isinstance(expr, cond.Ite):
-        el = etree.SubElement(parent, "ite")
+        el = ET.SubElement(parent, "ite")
         for arg in expr.args:
             _emit_expression(el, arg)
         return
     if isinstance(expr, cond.Switch):
-        el = etree.SubElement(parent, "switch")
+        el = ET.SubElement(parent, "switch")
         for case_cond, case_val in expr.cases:
-            case_el = etree.SubElement(el, "case")
+            case_el = ET.SubElement(el, "case")
             _emit_expression(case_el, case_cond)
             _emit_expression(case_el, case_val)
         _emit_expression(el, expr.default)
@@ -120,7 +120,7 @@ def _emit_expression(parent, expr) -> None:
     name = _SIMPLE_EXPR.get(type(expr))
     if name is None:
         raise TypeError(f"No MEF serialization for {type(expr).__name__}")
-    el = etree.SubElement(parent, name)
+    el = ET.SubElement(parent, name)
     for arg in expr.args:
         _emit_expression(el, arg)
 
@@ -128,7 +128,7 @@ def _emit_expression(parent, expr) -> None:
 def _emit_arg(parent, arg) -> None:
     event = arg.event
     if event is TRUE_EVENT or event is FALSE_EVENT:
-        etree.SubElement(parent, "constant",
+        ET.SubElement(parent, "constant",
                          value="true" if event.state else "false")
         return
     if isinstance(event, Gate):
@@ -139,8 +139,8 @@ def _emit_arg(parent, arg) -> None:
         kind = "basic-event"
     target = parent
     if arg.complement:
-        target = etree.SubElement(parent, "not")
-    etree.SubElement(target, kind, name=event.id)
+        target = ET.SubElement(parent, "not")
+    ET.SubElement(target, kind, name=event.id)
 
 
 def _emit_formula(parent, formula: Formula) -> None:
@@ -154,36 +154,36 @@ def _emit_formula(parent, formula: Formula) -> None:
     elif c is Connective.CARDINALITY:
         attrs["min"] = str(formula.min_number)
         attrs["max"] = str(formula.max_number)
-    el = etree.SubElement(parent, CONNECTIVE_NAMES[c], **attrs)
+    el = ET.SubElement(parent, CONNECTIVE_NAMES[c], **attrs)
     for arg in formula.args:
         _emit_arg(el, arg)
 
 
 def _emit_instruction(parent, instruction) -> None:
     if isinstance(instruction, Rule):
-        etree.SubElement(parent, "rule", name=instruction.id)
+        ET.SubElement(parent, "rule", name=instruction.id)
     elif isinstance(instruction, Link):
-        etree.SubElement(parent, "event-tree",
+        ET.SubElement(parent, "event-tree",
                          name=instruction.event_tree.id)
     elif isinstance(instruction, SetHouseEvent):
-        el = etree.SubElement(parent, "set-house-event",
+        el = ET.SubElement(parent, "set-house-event",
                               name=instruction.name)
-        etree.SubElement(el, "constant",
+        ET.SubElement(el, "constant",
                          value="true" if instruction.state else "false")
     elif isinstance(instruction, CollectExpression):
-        el = etree.SubElement(parent, "collect-expression")
+        el = ET.SubElement(parent, "collect-expression")
         _emit_expression(el, instruction.expression)
     elif isinstance(instruction, CollectFormula):
-        el = etree.SubElement(parent, "collect-formula")
+        el = ET.SubElement(parent, "collect-formula")
         _emit_formula(el, instruction.formula)
     elif isinstance(instruction, IfThenElse):
-        el = etree.SubElement(parent, "if")
+        el = ET.SubElement(parent, "if")
         _emit_expression(el, instruction.expression)
         _emit_instruction(el, instruction.then_instruction)
         if instruction.else_instruction is not None:
             _emit_instruction(el, instruction.else_instruction)
     elif isinstance(instruction, Block):
-        el = etree.SubElement(parent, "block")
+        el = ET.SubElement(parent, "block")
         for inner in instruction.instructions:
             _emit_instruction(el, inner)
     else:  # pragma: no cover - defensive
@@ -195,20 +195,20 @@ def _emit_branch(parent, branch: Branch) -> None:
         _emit_instruction(parent, instruction)
     target = branch.target
     if isinstance(target, Sequence):
-        etree.SubElement(parent, "sequence", name=target.id)
+        ET.SubElement(parent, "sequence", name=target.id)
     elif isinstance(target, NamedBranch):
-        etree.SubElement(parent, "branch", name=target.name)
+        ET.SubElement(parent, "branch", name=target.name)
     elif isinstance(target, Fork):
-        fork_el = etree.SubElement(
+        fork_el = ET.SubElement(
             parent, "fork",
             **{"functional-event": target.functional_event.name})
         for path in target.paths:
-            path_el = etree.SubElement(fork_el, "path", state=path.state)
+            path_el = ET.SubElement(fork_el, "path", state=path.state)
             _emit_branch(path_el, path)
 
 
 def model_to_mef_xml(model: Model) -> bytes:
-    root = etree.Element("opsa-mef")
+    root = ET.Element("opsa-mef")
     if not model.has_default_name:
         root.set("name", model.name)
 
@@ -216,48 +216,48 @@ def model_to_mef_xml(model: Model) -> bytes:
         attrs = {"name": initiating.name}
         if initiating.event_tree is not None:
             attrs["event-tree"] = initiating.event_tree.id
-        etree.SubElement(root, "define-initiating-event", **attrs)
+        ET.SubElement(root, "define-initiating-event", **attrs)
 
     for rule in model.rules:
-        el = etree.SubElement(root, "define-rule", name=rule.name)
+        el = ET.SubElement(root, "define-rule", name=rule.name)
         for instruction in rule.instructions:
             _emit_instruction(el, instruction)
 
     for event_tree in model.event_trees:
-        et_el = etree.SubElement(root, "define-event-tree",
+        et_el = ET.SubElement(root, "define-event-tree",
                                  name=event_tree.name)
         for functional in event_tree.functional_events:
-            etree.SubElement(et_el, "define-functional-event",
+            ET.SubElement(et_el, "define-functional-event",
                              name=functional.name)
         for sequence in event_tree.sequences:
-            seq_el = etree.SubElement(et_el, "define-sequence",
+            seq_el = ET.SubElement(et_el, "define-sequence",
                                       name=sequence.name)
             for instruction in sequence.instructions:
                 _emit_instruction(seq_el, instruction)
         for branch in event_tree.branches:
-            br_el = etree.SubElement(et_el, "define-branch",
+            br_el = ET.SubElement(et_el, "define-branch",
                                      name=branch.name)
             _emit_branch(br_el, branch)
-        initial = etree.SubElement(et_el, "initial-state")
+        initial = ET.SubElement(et_el, "initial-state")
         _emit_branch(initial, event_tree.initial_state)
 
     for fault_tree in model.fault_trees:
-        ft_el = etree.SubElement(root, "define-fault-tree",
+        ft_el = ET.SubElement(root, "define-fault-tree",
                                  name=fault_tree.name)
         for gate in fault_tree.gates:
-            gate_el = etree.SubElement(ft_el, "define-gate", name=gate.name)
+            gate_el = ET.SubElement(ft_el, "define-gate", name=gate.name)
             _emit_formula(gate_el, gate.formula)
         for event in fault_tree.basic_events:
             if isinstance(event, CcfEvent):
                 continue  # Generated, not source constructs.
-            ev_el = etree.SubElement(ft_el, "define-basic-event",
+            ev_el = ET.SubElement(ft_el, "define-basic-event",
                                      name=event.name)
             if event.has_expression:
                 _emit_expression(ev_el, event.expression)
         for house in fault_tree.house_events:
-            h_el = etree.SubElement(ft_el, "define-house-event",
+            h_el = ET.SubElement(ft_el, "define-house-event",
                                     name=house.name)
-            etree.SubElement(h_el, "constant",
+            ET.SubElement(h_el, "constant",
                              value="true" if house.state else "false")
         for parameter in fault_tree.parameters:
             _emit_parameter(ft_el, parameter)
@@ -280,68 +280,68 @@ def model_to_mef_xml(model: Model) -> bytes:
                    if id(e) not in owned_house]
     loose_param = [p for p in model.parameters if id(p) not in owned_param]
     if loose_basic or loose_house or loose_param:
-        md = etree.SubElement(root, "model-data")
+        md = ET.SubElement(root, "model-data")
         for event in loose_basic:
-            ev_el = etree.SubElement(md, "define-basic-event",
+            ev_el = ET.SubElement(md, "define-basic-event",
                                      name=event.name)
             if event.has_expression:
                 _emit_expression(ev_el, event.expression)
         for house in loose_house:
-            h_el = etree.SubElement(md, "define-house-event",
+            h_el = ET.SubElement(md, "define-house-event",
                                     name=house.name)
-            etree.SubElement(h_el, "constant",
+            ET.SubElement(h_el, "constant",
                              value="true" if house.state else "false")
         for parameter in loose_param:
             _emit_parameter(md, parameter)
 
     for alignment in model.alignments:
-        al_el = etree.SubElement(root, "define-alignment",
+        al_el = ET.SubElement(root, "define-alignment",
                                  name=alignment.name)
         for phase in alignment.phases:
-            ph_el = etree.SubElement(
+            ph_el = ET.SubElement(
                 al_el, "define-phase", name=phase.name,
                 **{"time-fraction": repr(phase.time_fraction)})
             for instruction in phase.instructions:
                 _emit_instruction(ph_el, instruction)
 
     for substitution in model.substitutions:
-        sub_el = etree.SubElement(root, "define-substitution",
+        sub_el = ET.SubElement(root, "define-substitution",
                                   name=substitution.name)
-        hyp = etree.SubElement(sub_el, "hypothesis")
+        hyp = ET.SubElement(sub_el, "hypothesis")
         _emit_formula(hyp, substitution.hypothesis)
         if substitution.source:
-            source = etree.SubElement(sub_el, "source")
+            source = ET.SubElement(sub_el, "source")
             for event in substitution.source:
-                etree.SubElement(source, "basic-event", name=event.id)
-        target = etree.SubElement(sub_el, "target")
+                ET.SubElement(source, "basic-event", name=event.id)
+        target = ET.SubElement(sub_el, "target")
         if isinstance(substitution.target, BasicEvent):
-            etree.SubElement(target, "basic-event",
+            ET.SubElement(target, "basic-event",
                              name=substitution.target.id)
         else:
-            etree.SubElement(
+            ET.SubElement(
                 target, "constant",
                 value="true" if substitution.target else "false")
 
-    return etree.tostring(root, pretty_print=True, xml_declaration=True,
-                          encoding="UTF-8")
+    ET.indent(root)
+    return ET.tostring(root, xml_declaration=True, encoding="UTF-8")
 
 
 def _emit_parameter(parent, parameter: Parameter) -> None:
     attrs = {"name": parameter.name}
     if parameter.unit:
         attrs["unit"] = UNIT_NAMES[parameter.unit]
-    el = etree.SubElement(parent, "define-parameter", **attrs)
+    el = ET.SubElement(parent, "define-parameter", **attrs)
     _emit_expression(el, parameter.expression)
 
 
 def _emit_ccf_group(parent, group: CcfGroup) -> None:
-    el = etree.SubElement(parent, "define-CCF-group", name=group.name,
+    el = ET.SubElement(parent, "define-CCF-group", name=group.name,
                           model=_CCF_MODEL_NAMES[type(group)])
-    members = etree.SubElement(el, "members")
+    members = ET.SubElement(el, "members")
     for member in group.members:
-        etree.SubElement(members, "basic-event", name=member.name)
-    dist = etree.SubElement(el, "distribution")
+        ET.SubElement(members, "basic-event", name=member.name)
+    dist = ET.SubElement(el, "distribution")
     _emit_expression(dist, group.distribution)
     for level, factor in group.factors:
-        f_el = etree.SubElement(el, "factor", level=str(level))
+        f_el = ET.SubElement(el, "factor", level=str(level))
         _emit_expression(f_el, factor)

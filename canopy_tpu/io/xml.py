@@ -4,27 +4,32 @@ Capability parity with the reference XML IO layer
 (``/root/reference/src/io/xml/{document,element,range,validator,helpers}.h``):
 
 * :class:`Document` — parse a file with XInclude resolution, no network
-  access, compaction for huge inputs, and optional RELAX NG validation
-  (``document.h:15-33``).
+  access, and optional RELAX NG validation (``document.h:15-33``).
 * :class:`Element` — immutable adaptor over a DOM node with trimmed,
   *strictly typed* attribute/text access and name-filtered child iteration
   (``element.h:18-96``); every element knows its ``filename``/``line`` so
   model errors always carry source context.
 * :class:`Validator` — compiled RELAX NG schema (``validator.h:12-20``).
 
-Built on lxml (libxml2 underneath — the same engine the reference wraps),
-which keeps parsing off the analysis hot path; model compilation and
-quantification are the TPU-side costs.
+Parsing uses the standard library only (expat through
+``xml.etree.ElementTree``), so loading and analysing a model needs no
+third-party XML package. The standard library has no RELAX NG engine:
+:class:`Validator` imports ``lxml`` when a schema is asked for, and says
+so when it is missing.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import urllib.parse
+import xml.etree.ElementInclude as ElementInclude
+import xml.etree.ElementTree as ET
 from typing import Iterator
+from xml.parsers import expat
 
-from lxml import etree
-
-from ..errors import XIncludeError, XmlParseError, XmlValidityError
+from ..errors import (IllegalOperation, XIncludeError, XmlParseError,
+                      XmlValidityError)
 
 __all__ = ["Document", "Element", "Validator", "to_bool", "to_int", "to_float"]
 
@@ -36,6 +41,9 @@ _FALSE = {"false", "0"}
 _INT_RE = re.compile(r"^[+-]?\d+$")
 _FLOAT_RE = re.compile(
     r"^[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?$")
+
+#: Nested XInclude depth limit (include loops are rejected separately).
+_MAX_INCLUDE_DEPTH = 32
 
 
 def to_bool(text: str) -> bool:
@@ -67,6 +75,94 @@ def to_float(text: str) -> float:
 _CONVERTERS = {bool: to_bool, int: to_int, float: to_float, str: lambda s: s.strip()}
 
 
+class _SourceElement(ET.Element):
+    """An ElementTree node that remembers its source file and line."""
+
+    sourceline = 0
+    filename = "<memory>"
+
+    def __copy__(self):
+        # ElementInclude copies every included root; keep the subclass
+        # and its source position (the C base class would drop both).
+        node = _SourceElement(self.tag, self.attrib)
+        node.text, node.tail = self.text, self.tail
+        node[:] = list(self)
+        node.__dict__.update(self.__dict__)
+        return node
+
+
+def _qualified(name: str) -> str:
+    """expat's ``uri}local`` (namespace_separator="}") -> ``{uri}local``."""
+    return "{" + name if "}" in name else name
+
+
+def _parse(data: bytes, filename: str) -> _SourceElement:
+    """Parse ``data`` into a tree of :class:`_SourceElement` nodes.
+
+    Entity declarations are refused (no entity expansion, internal or
+    external) and nothing is fetched: the posture of the reference's
+    parser, which disables network access.
+    """
+    builder = ET.TreeBuilder(element_factory=_SourceElement)
+    parser = expat.ParserCreate(namespace_separator="}")
+    parser.SetParamEntityParsing(expat.XML_PARAM_ENTITY_PARSING_NEVER)
+    parser.buffer_text = True
+
+    def start(tag, attrs):
+        node = builder.start(_qualified(tag),
+                             {_qualified(k): v for k, v in attrs.items()})
+        node.sourceline = parser.CurrentLineNumber
+        node.filename = filename
+
+    def refuse_entity(name, *_args):
+        raise XmlParseError(f"Entity declarations are not allowed "
+                            f"('{name}').", filename=filename,
+                            line=parser.CurrentLineNumber)
+
+    parser.StartElementHandler = start
+    parser.EndElementHandler = lambda tag: builder.end(_qualified(tag))
+    parser.CharacterDataHandler = builder.data
+    parser.EntityDeclHandler = refuse_entity
+    parser.UnparsedEntityDeclHandler = refuse_entity
+    try:
+        parser.Parse(data, True)
+    except expat.ExpatError as exc:
+        raise XmlParseError(str(exc), filename=filename,
+                            line=exc.lineno) from exc
+    return builder.close()
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def _local_loader(href: str, parse: str, encoding: str | None = None):
+    """XInclude loader for local files only (no network, no URL schemes)."""
+    url = urllib.parse.urlparse(href)
+    if url.scheme not in ("", "file") and not os.path.isabs(href):
+        raise OSError(f"non-local XInclude href refused: {href}")
+    path = url.path if url.scheme == "file" else href
+    data = _read(path)
+    if parse == "xml":
+        return _parse(data, path)
+    return data.decode(encoding or "utf-8")
+
+
+def _resolve_includes(root: _SourceElement, filename: str,
+                      base_url: str | None) -> _SourceElement:
+    try:
+        # The root itself may be an include; wrap it so it can be replaced.
+        holder = ET.Element("holder")
+        holder.append(root)
+        ElementInclude.include(holder, loader=_local_loader,
+                               base_url=base_url,
+                               max_depth=_MAX_INCLUDE_DEPTH)
+        return holder[0]
+    except (ElementInclude.FatalIncludeError, OSError, XmlParseError) as exc:
+        raise XIncludeError(str(exc), filename=filename) from exc
+
+
 class Element:
     """Immutable adaptor over an XML element node.
 
@@ -84,16 +180,15 @@ class Element:
     # -- identity ----------------------------------------------------------
     @property
     def name(self) -> str:
-        return etree.QName(self._node).localname
+        return self._node.tag.rpartition("}")[2]
 
     @property
     def filename(self) -> str:
-        docinfo = self._node.getroottree().docinfo
-        return docinfo.URL or "<memory>"
+        return getattr(self._node, "filename", "<memory>")
 
     @property
     def line(self) -> int:
-        return self._node.sourceline or 0
+        return getattr(self._node, "sourceline", 0)
 
     # -- attributes --------------------------------------------------------
     def has_attribute(self, name: str) -> bool:
@@ -126,24 +221,17 @@ class Element:
     # -- children ----------------------------------------------------------
     def child(self, name: str | None = None) -> "Element | None":
         """The first child element (optionally restricted by name)."""
-        for node in self._node.iterchildren():
-            if not isinstance(node.tag, str):
-                continue  # skip comments / PIs
-            if name is None or etree.QName(node).localname == name:
-                return Element(node)
-        return None
+        return next(iter(self.children(name)), None)
 
     def children(self, name: str | None = None) -> Iterator["Element"]:
-        """Iterate child elements, skipping non-element nodes.
+        """Iterate child elements in document order.
 
         Matches the reference ``range`` view semantics
         (``src/io/xml/range.h:11-69``): document order, elements only,
         optional name filter.
         """
-        for node in self._node.iterchildren():
-            if not isinstance(node.tag, str):
-                continue
-            if name is None or etree.QName(node).localname == name:
+        for node in self._node:
+            if name is None or node.tag.rpartition("}")[2] == name:
                 yield Element(node)
 
     def num_children(self, name: str | None = None) -> int:
@@ -154,22 +242,42 @@ class Element:
 
 
 class Validator:
-    """Compiled RELAX NG schema validator (reference ``validator.h:12-20``)."""
+    """Compiled RELAX NG schema validator (reference ``validator.h:12-20``).
+
+    The standard library has no RELAX NG engine, so this is the one part
+    of the XML layer that needs ``lxml``; it is imported here, only when
+    a schema is asked for (``--validate`` or a project file).
+    """
 
     def __init__(self, schema_path: str):
         try:
-            schema_doc = etree.parse(schema_path)
-            self._schema = etree.RelaxNG(schema_doc)
+            from lxml import etree
+        except ImportError as exc:
+            raise IllegalOperation(
+                "RELAX NG validation needs the 'lxml' package, which is "
+                "not installed (pip install 'canopy-tpu[validation]').",
+                filename=schema_path) from exc
+        self._etree = etree
+        try:
+            self._schema = etree.RelaxNG(etree.parse(schema_path))
         except (etree.XMLSyntaxError, etree.RelaxNGError) as exc:
             raise XmlParseError(f"Invalid RELAX NG schema: {exc}",
                                 filename=schema_path) from exc
 
     def validate(self, document: "Document") -> None:
-        if not self._schema.validate(document._tree):
+        etree = self._etree
+        parser = etree.XMLParser(huge_tree=True, no_network=True,
+                                 resolve_entities=False)
+        if document._path is not None:
+            tree = etree.parse(document._path, parser)
+        else:
+            tree = etree.fromstring(document._text, parser).getroottree()
+        tree.xinclude()
+        if not self._schema.validate(tree):
             err = self._schema.error_log.last_error
             raise XmlValidityError(
                 err.message if err else "Document failed RELAX NG validation.",
-                filename=err.filename if err else document.filename,
+                filename=document.filename,
                 line=err.line if err else None)
 
 
@@ -177,57 +285,40 @@ class Document:
     """A parsed MEF input file: XInclude-resolved, optionally validated.
 
     Parser posture matches the reference (``document.cpp:8-35``): XInclude
-    resolution, *no network access*, tolerant of huge inputs, with entity
-    expansion disabled (hardening beyond the reference).
+    resolution from local files, *no network access*, with entity
+    declarations refused (hardening beyond the reference).
     """
-
-    _PARSER = etree.XMLParser(
-        huge_tree=True,
-        no_network=True,
-        resolve_entities=False,
-        remove_comments=False,
-        remove_pis=False,
-    )
 
     def __init__(self, file_path: str, validator: Validator | None = None):
         try:
-            self._tree = etree.parse(file_path, self._PARSER)
+            data = _read(file_path)
         except OSError as exc:
             raise XmlParseError(f"Cannot read input file: {exc}",
                                 filename=file_path) from exc
-        except etree.XMLSyntaxError as exc:
-            raise XmlParseError(str(exc), filename=file_path,
-                                line=exc.lineno) from exc
-        try:
-            self._tree.xinclude()
-        except etree.XIncludeError as exc:
-            raise XIncludeError(str(exc), filename=file_path) from exc
-        if validator is not None:
-            validator.validate(self)
+        self._init(data, file_path, file_path, None, validator)
 
     @classmethod
     def from_string(cls, text: str, filename: str = "<memory>",
                     validator: Validator | None = None) -> "Document":
         """Parse from an in-memory string (used heavily by tests)."""
         self = cls.__new__(cls)
-        try:
-            root = etree.fromstring(text.encode(), cls._PARSER)
-            self._tree = root.getroottree()
-        except etree.XMLSyntaxError as exc:
-            raise XmlParseError(str(exc), filename=filename,
-                                line=exc.lineno) from exc
-        try:
-            self._tree.xinclude()
-        except etree.XIncludeError as exc:
-            raise XIncludeError(str(exc), filename=filename) from exc
+        self._init(text.encode(), filename, None, text.encode(), validator)
+        return self
+
+    def _init(self, data: bytes, filename: str, path: str | None,
+              text: bytes | None, validator: Validator | None) -> None:
+        self._filename = filename
+        self._path = path
+        self._text = text
+        root = _parse(data, filename)
+        self._root = _resolve_includes(root, filename, path)
         if validator is not None:
             validator.validate(self)
-        return self
 
     @property
     def filename(self) -> str:
-        return self._tree.docinfo.URL or "<memory>"
+        return self._filename
 
     @property
     def root(self) -> Element:
-        return Element(self._tree.getroot())
+        return Element(self._root)

@@ -16,7 +16,7 @@ come from the group's model:
 
 The expansion itself (``apply_model``) happens at model-setup time on the
 host; the compiler then sees ordinary basic events and OR gates, so the
-combinatorics never reach the TPU — they only add rows/nnz to the gate
+combinatorics never reach the device — they only add rows/nnz to the gate
 matrix (SURVEY.md §2.6).
 """
 

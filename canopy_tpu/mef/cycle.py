@@ -8,7 +8,7 @@ rules (through instruction visitors), and event-tree links. On detection it
 raises :class:`CycleError` with the pretty-printed cycle path.
 
 The same DFS doubles as the topological order used by the compiler's level
-scheduler — the no-cycle guarantee is what lets the TPU engine propagate
+scheduler — the no-cycle guarantee is what lets the device engine propagate
 probabilities level-by-level with static shapes.
 """
 

@@ -10,7 +10,7 @@ generates its 126 interface combinations from the same base-3 type encoding,
 expression arguments into the native call.
 
 The rebuild uses ``ctypes`` instead of ``boost::dll``. Extern expressions
-are host-evaluated: they cannot be traced into the TPU tape (the tape
+are host-evaluated: they cannot be traced into the device tape (the tape
 compiler folds them to constants when their arguments are deterministic and
 rejects deviate arguments with a clear error).
 """

@@ -7,7 +7,7 @@ histogram. ``value()`` is the analytic mean; ``interval()`` is the sample
 domain used for validation.
 
 The reference flags its own shared static ``std::mt19937`` as "not suitable
-for parallelized simulations!!!" (``random_deviate.h:20-24``). The TPU
+for parallelized simulations!!!" (``random_deviate.h:20-24``). The
 rebuild fixes this by design: the tape compiler assigns each deviate node a
 counter-based `jax.random` key folded from (analysis seed, node id), and
 draws the whole trials axis in one vectorized call — deterministic under any

@@ -11,7 +11,7 @@ Capability parity with the reference expression layer
 * Domain validators ``ensure_probability`` / ``ensure_positive`` /
   ``ensure_non_negative`` / ``ensure_within`` (``expression.h:292-368``).
 
-TPU note: the scalar ``value()``/``sample()`` interpreter here exists for
+Device note: the scalar ``value()``/``sample()`` interpreter here exists for
 validation and host-side oracles. Production evaluation happens through
 :mod:`canopy_tpu.compiler.expr_tape`, which compiles the expression DAG into
 a static SSA tape executed as one fused, batched JAX program over a trials
@@ -131,7 +131,7 @@ class Expression:
     def validate(self) -> None:
         """Late validation of argument domains (default: nothing)."""
 
-    # -- sampling protocol (scalar oracle; TPU path is the tape) ----------
+    # -- sampling protocol (scalar oracle; device path is the tape) -------
     def is_deviate(self) -> bool:
         """True if the value deviates from the mean (needs sampling)."""
         return any(arg.is_deviate() for arg in self.args)

@@ -35,7 +35,7 @@ class MissionTime(Expression):
 
     A mutable leaf: the analysis driver sets its value (from settings or a
     time-step sweep) and every dependent expression sees it. Compiled to a
-    broadcast scalar input of the TPU tape so time-stepped analyses re-use
+    broadcast scalar input of the device tape so time-stepped analyses re-use
     one compiled program.
     """
 

@@ -1,11 +1,11 @@
 """Bit-packed Monte-Carlo state evaluation: 32 trials per uint32 lane.
 
 The data-parallel Boolean engine the reference's CI promises
-(``./src/bool/bool`` run per accelerator backend — SURVEY.md §0) in its
-TPU-native form: Bernoulli basic-event states are packed 32-per-word, and
-every gate evaluates with pure bitwise VPU ops, cutting HBM traffic per
-trial by 32x versus float states — the dominant cost of deep-tree
-simulation at scale.
+(``./src/bool/bool`` run per accelerator backend — SURVEY.md §0):
+Bernoulli basic-event states are packed 32-per-word, and every gate
+evaluates with pure bitwise ops, cutting device-memory traffic per trial
+by 32x versus float states — the dominant cost of deep-tree simulation
+at scale.
 
 Gate families (mirroring ``compiler/graph.py``):
 
@@ -16,9 +16,8 @@ Gate families (mirroring ``compiler/graph.py``):
   argument count entirely with and/xor, then a bitwise magnitude
   comparator tests ``count >= k`` lane-parallel. No unpacking anywhere.
 
-Everything is jnp (XLA fuses the bitwise chains); the Pallas kernel in
-``ops/pallas_kernels.py`` fuses the Bernoulli draw + pack step with
-on-core PRNG.
+Everything is jnp: XLA fuses the bitwise chains, and the Bernoulli draw
+(``jax.random``) with the threshold-and-pack step.
 """
 
 from __future__ import annotations
@@ -53,9 +52,8 @@ def sample_states_packed(key, basic_p: jnp.ndarray,
                          n_trials: int) -> jnp.ndarray:
     """Packed Bernoulli states: (n_basic, n_trials//32) uint32.
 
-    Drawn as uniform uint32 thresholds compared against p scaled to 2^32:
-    one random word per (event, trial) bit — the XLA formulation; the
-    Pallas kernel generates bits on-core instead.
+    One uniform draw per (event, trial) bit, thresholded against p and
+    packed 32 trials to a word.
     """
     assert n_trials % 32 == 0
     n_basic = basic_p.shape[-1]
@@ -167,12 +165,41 @@ def popcount_mean(words: jnp.ndarray, n_trials: int) -> jnp.ndarray:
     return jnp.sum(counts, axis=-1).astype(jnp.float64) / n_trials
 
 
+#: Uniform draws per chunk of trials (a 1 GiB float32 sample): bounds
+#: device memory whatever ``n_trials`` and the event count are.
+_CHUNK_ELEMENTS = 1 << 28
+
+
 def packed_top_probability(tree: CompiledTree, key, basic_p: jnp.ndarray,
                            n_trials: int,
                            house_states: jnp.ndarray | None = None):
-    """Monte-Carlo top-event estimate through the bit-packed engine."""
+    """Monte-Carlo top-event estimate through the bit-packed engine.
+
+    The estimate is over ``n_trials`` rounded up to whole 32-trial words.
+    They run in equal chunks of at most ``_CHUNK_ELEMENTS / n_basic``
+    trials inside one compiled loop, chunk ``i`` drawing with
+    ``fold_in(key, i)``; words past the last trial are drawn but not
+    counted.
+    """
     if house_states is None:
         house_states = jnp.asarray(tree.house_state_vector())
-    packed = sample_states_packed(key, basic_p, n_trials)
-    vals = propagate_packed(tree, packed, house_states)
-    return popcount_mean(vals[tree.top_index], n_trials)
+    n_words = max(-(-n_trials // 32), 1)
+    max_words = max(_CHUNK_ELEMENTS // (32 * max(tree.n_basic, 1)), 1)
+    n_chunks = -(-n_words // max_words)
+    chunk_words = -(-n_words // n_chunks)
+
+    @jax.jit
+    def hits(key, basic_p, house_states):
+        def body(i, total):
+            packed = sample_states_packed(jax.random.fold_in(key, i),
+                                          basic_p, 32 * chunk_words)
+            top = propagate_packed(tree, packed, house_states)[
+                tree.top_index]
+            live = i * chunk_words + jnp.arange(chunk_words) < n_words
+            count = jnp.sum(jnp.where(live, jax.lax.population_count(top),
+                                      0), dtype=jnp.int32)
+            return total + count.astype(total.dtype)
+        return jax.lax.fori_loop(0, n_chunks, body,
+                                 jnp.zeros((), jnp.float64))
+
+    return hits(key, basic_p, house_states) / (32 * n_words)

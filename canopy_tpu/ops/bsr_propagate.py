@@ -1,7 +1,6 @@
-"""BSR log-space propagation: gate evaluation on the MXU.
+"""BSR log-space propagation: gate evaluation as block-sparse matmuls.
 
-The structural answer to the row-gather wall (see the perf notes in the
-repo memory): instead of gathering one value row per argument edge, each
+An alternative to row gathers: instead of gathering one value row per argument edge, each
 level becomes a **block-sparse matrix multiply in log space**:
 
     x_edge  = flip ? (1 - v_src) : v_src          (edge literal)
@@ -12,10 +11,11 @@ The log-sum is ``S @ L`` where ``S`` is the 0/1 level structure matrix
 over a **doubled column space** — column ``c`` reads ``log(v_c)``,
 column ``N + c`` reads ``log(1 - v_c)`` — so per-edge flips cost nothing.
 ``S`` is stored as BSR: 128-gate row blocks x 128-column blocks, each a
-dense f32 tile fed to the MXU. HBM then sees *block* gathers
+dense f32 tile fed to the matrix units. Device memory then sees *block*
+gathers
 (128 rows x trials at a stride) instead of scattered single rows — the
-streaming-friendly pattern — and the multiply itself rides the MXU's
-FLOP surplus (fill-in waste is paid in idle-FLOPs, not bandwidth).
+streaming-friendly pattern — and the multiply itself rides the matrix
+units' FLOP surplus (fill-in waste is paid in idle-FLOPs, not bandwidth).
 
 Effectiveness depends on argument locality (how few column blocks each
 row block touches). Real PRA trees have strong subsystem locality; the
@@ -26,7 +26,8 @@ the gather engine per model (``bsr_cost_report``).
 
 Numerics: logs are clamped at -1e4 (exp underflows to exactly 0 in f32),
 so hard 0/1 inputs stay exact; otherwise f32 log/exp round-trip error is
-~1e-6 relative — the same class as the f32 product engine.
+~1e-6 relative — the same class as the f32 product engine.  The einsum
+asks for HIGHEST precision, so a GPU does not run it in TF32.
 """
 
 from __future__ import annotations
@@ -43,14 +44,13 @@ from ..errors import LogicError
 __all__ = ["compile_bsr", "bsr_arrays", "bsr_top_probability",
            "bsr_cost_report", "estimate_bsr_fill"]
 
-_BLOCK = 128        # Column block (MXU contraction dim).
+_BLOCK = 128        # Column block (matmul contraction dim).
 # Default row block.  Wider row blocks amortize each gathered 128-column
 # slab over more gates (HBM floats/nnz at 8/32 on the reordered
 # branching-8 hierarchical bench: 9.5/5.0) but store proportionally
-# larger mostly-zero tiles (fill 76x/161x).  Measured on v5e: 6.30 vs
-# 7.98 G/s — the engine is overhead-bound at PRA level sizes, not
-# bandwidth-bound, so the narrow block keeps 2x memory for a ~21 % perf
-# cost; 128-row tiles are impractical (tile arrays reach hundreds of MB).
+# larger mostly-zero tiles (fill 76x/161x); 128-row tiles are
+# impractical (tile arrays reach hundreds of MB).  Its speed on the GPU
+# is not measured yet.
 _ROW_BLOCK = 8
 _LOG_CLAMP = -1e4
 
@@ -82,7 +82,7 @@ class BsrProgram:
 
     @property
     def fill_ratio(self) -> float:
-        """Stored tile entries per structural nonzero (the MXU waste)."""
+        """Stored tile entries per structural nonzero (the matmul waste)."""
         return self.fill_blocks * self.row_block * _BLOCK / max(self.nnz, 1)
 
     @property
@@ -211,8 +211,11 @@ def bsr_top_probability(program: BsrProgram, basic_p: jnp.ndarray,
             program.levels, params):
         L_blocks = L.reshape(-1, _BLOCK, T)
         gathered = L_blocks[pair_cols]                     # (P, 128, T)
+        # HIGHEST: a float32 product would otherwise run in TF32 on
+        # GPUs (about three decimal digits), far too coarse for logs.
         partial = jnp.einsum("prc,pct->prt", blocks, gathered,
-                             preferred_element_type=dtype)
+                             preferred_element_type=dtype,
+                             precision=jax.lax.Precision.HIGHEST)
         y = jax.ops.segment_sum(partial, pair_rows,
                                 num_segments=level.n_row_blocks)
         y = y.reshape(level.n_row_blocks * level.row_block,

@@ -6,15 +6,15 @@ periodic-test repairable-component semantics).  PRA dependency submodels
 are continuous-time Markov chains over component-group states whose state
 probabilities feed basic events of the surrounding fault tree.
 
-TPU-native design:
+Accelerator-friendly design:
 
 * **Transients** — uniformization (Jensen's method): strictly
-  matmul/matvec compute (MXU-shaped) with an a-priori truncation bound,
+  matmul/matvec compute (matrix-unit shaped) with an a-priori truncation bound,
   batched over time points and epistemic trials with ``vmap``.
 * **Sparse triangular solves** — blocked forward/backward substitution
   compiled on the host (:func:`compile_blocked_triangular`): rows are
   cut into fixed blocks; each block's intra-block coupling becomes a
-  dense (B, B) triangle solved on the MXU, and its dependencies on
+  dense (B, B) triangle solved as a dense matmul, and its dependencies on
   earlier blocks become one ELL gather (the propagation engines' access
   pattern).  The device executes a single ``lax.scan`` over blocks —
   static shapes, one trace — so a 10k-state bidiagonal chain (which a

@@ -2,11 +2,11 @@
 
 The reference has no distributed backend (SURVEY.md §5: SYCL multi-device
 was planned, never built; CI's ``|| true`` is the opposite of failure
-detection). The TPU-native stack needs no NCCL/MPI layer — the XLA
-runtime *is* the backend — so this module is thin by design:
+detection). JAX's runtime *is* the backend (XLA hands collectives to
+NCCL on GPUs), so this module is thin by design:
 
-* :func:`initialize` — `jax.distributed.initialize` from standard TPU pod
-  environment variables (or explicit args for CPU multi-process tests).
+* :func:`initialize` — `jax.distributed.initialize`, with the
+  coordinator address, process count and id passed explicitly.
   The coordinator heartbeat that `jax.distributed` maintains is the
   failure detector: a lost host fails the step with a distributed
   runtime error instead of hanging.
@@ -29,8 +29,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize `jax.distributed` (no-op when single-process).
 
-    On TPU pods all arguments are discovered from the environment; pass
-    them explicitly for CPU multi-process testing
+    Nothing on a single GPU host describes a cluster, so pass
+    ``coordinator_address`` (e.g. ``localhost:<port>``), ``num_processes``
+    and ``process_id`` explicitly
     (`--xla_force_host_platform_device_count` covers single-process mesh
     tests without this).
     """

@@ -5,7 +5,7 @@ The workload's native parallel axes (SURVEY.md §2.6):
 * ``data`` — the sample/trials axis (uncertainty trials, MC states):
   embarrassingly parallel, so it takes most of the mesh.
 * ``model`` — row/block partition of gate-structure and cut-set matrices
-  (the tensor-parallel analogue); partial sums ride ICI via `psum`.
+  (the tensor-parallel analogue); partial sums meet in a `psum`.
 
 Pipeline parallelism maps to gate levels (deep trees) and is planned on
 top of the same mesh; sequence/context/expert parallelism have no

@@ -17,9 +17,9 @@ the whole value matrix), which is the minimal halo for a row partition.
 Padding rows (to make blocks divisible) duplicate row 0 and are sliced
 off after the gather — identity by construction.
 
-On real hardware the ``model`` axis should map to ICI neighbors so the
-all-gather rides ICI bandwidth; the ``data`` axis never communicates
-until the final statistics psum.
+On GPUs the all-gather is an NCCL collective over NVLink, where every
+card reaches every other at the same rate; the ``data`` axis never
+communicates until the final statistics psum.
 """
 
 from __future__ import annotations

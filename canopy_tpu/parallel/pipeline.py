@@ -16,8 +16,8 @@ levels/stages degenerating to no-ops. Stage arrays are sharded over
 ``pipe`` so each device reads only its own microcode.
 
 Per step, the in-flight value buffer ``(n_nodes, T_micro)`` moves one
-stage forward with a neighbor `ppermute` — on hardware this rides ICI
-nearest-neighbor links, and overlaps with the next microbatch's compute
+stage forward with a neighbor `ppermute` — on GPUs an NCCL send over
+NVLink — and overlaps with the next microbatch's compute
 in XLA's schedule (send happens once per step, compute fills the rest).
 
 This engine exists for *depth*: wall-clock per level is latency-bound

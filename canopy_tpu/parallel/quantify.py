@@ -1,6 +1,6 @@
 """Sharded quantification steps over a ("data", "model") mesh.
 
-Two complementary idioms, both TPU-native (SURVEY.md §2.6, §5):
+Two complementary idioms (SURVEY.md §2.6, §5):
 
 * **GSPMD annotation** (:func:`sharded_uncertainty_step`): the trials axis
   is laid out over ``data`` with `NamedSharding`; the per-level gate
@@ -34,11 +34,8 @@ except ImportError:  # pragma: no cover - older jax
 from ..compiler.graph import CompiledTree
 from ..engine.cutset_quantify import CutSetMatrix
 from ..engine.propagate import propagate_probability
-from ..errors import LogicError
 
-__all__ = ["sharded_stream_grad_step",
-           "sharded_uncertainty_step", "sharded_cutset_quantifier",
-           "sharded_stream_step", "sharded_replay_step"]
+__all__ = ["sharded_uncertainty_step", "sharded_cutset_quantifier"]
 
 
 def sharded_uncertainty_step(tree: CompiledTree, mesh: Mesh):
@@ -114,155 +111,3 @@ def sharded_cutset_quantifier(matrix: CutSetMatrix, mesh: Mesh):
                        alive_j.astype(basic_p.dtype))
 
     return quantify
-
-
-def sharded_stream_step(program, mesh: Mesh,
-                        house_states: np.ndarray,
-                        interpret: bool = False,
-                        _local_override=None):
-    """Data-parallel streaming propagation: jitted
-    ``(basic_p_batch) -> per-trial top probabilities``.
-
-    The flagship big-structured-tree engine (``ops/stream_kernel``) under
-    explicit ``shard_map``: Pallas calls do not auto-partition under
-    GSPMD, so the trials axis is sharded over the full mesh and each
-    device streams its own trial tiles through its VMEM pool — pure data
-    parallelism, no collectives (the per-trial outputs concatenate).
-    Staging (``stage_basic``) runs GSPMD-sharded on the same axis first.
-
-    The global trial count must give every device a whole number of
-    (8, 128) tiles: ``n_trials % (1024 * mesh.size) == 0``.
-    """
-    from ..ops.stream_kernel import stage_basic, stream_propagate_staged
-
-    axes = tuple(mesh.axis_names)
-    n_dev = int(mesh.devices.size)
-    nbp = program.n_basic_pad
-
-    def local(staged_local):
-        return stream_propagate_staged(program, staged_local, house_states,
-                                       interpret=interpret)
-
-    if _local_override is not None:  # Testing hook (sharding plumbing).
-        local = _local_override
-
-    # check_vma must be off: pallas_call's out_shape carries no
-    # varying-mesh-axes annotation (the kernel is purely per-shard).
-    sharded = shard_map(local, mesh=mesh, in_specs=P(axes, None, None),
-                        out_specs=P(axes), check_vma=False)
-
-    @jax.jit
-    def step(basic_p):
-        n_trials = basic_p.shape[0]
-        if n_trials % (1024 * n_dev):
-            raise LogicError(
-                f"sharded stream step needs n_trials % "
-                f"{1024 * n_dev} == 0 (whole tiles per device)")
-        staged = stage_basic(program, basic_p)
-        # Shard boundaries must align with per-trial-tile blocks of the
-        # staged layout (each block is n_basic_pad rows).
-        assert (staged.shape[0] // n_dev) % nbp == 0
-        return sharded(staged)
-
-    return step
-
-
-def sharded_replay_step(program, mesh: Mesh,
-                        house_states: np.ndarray,
-                        interpret: bool = False,
-                        _local_override=None):
-    """Data-parallel replay-stream propagation: jitted
-    ``(basic_p_batch) -> per-trial top probabilities``.
-
-    The flagship big-THRASHING-tree engine (``compiler/replay.py``)
-    under explicit ``shard_map``: staging (``stage_replay`` — one GSPMD
-    gather over the sharded trials axis) lays the per-read basic stream
-    out per trial tile, each device streams its own tile blocks through
-    its VMEM pool + slab ring, and the per-trial outputs concatenate —
-    pure data parallelism, no collectives.  Same tile-alignment
-    contract as :func:`sharded_stream_step`; shard boundaries align
-    with per-trial-tile blocks of ``brs_len_pad`` rows.
-    """
-    from ..ops.stream_kernel import replay_propagate_staged, stage_replay
-
-    axes = tuple(mesh.axis_names)
-    n_dev = int(mesh.devices.size)
-    blp = program.brs_len_pad
-
-    def local(staged_local):
-        return replay_propagate_staged(program, staged_local,
-                                       house_states, interpret=interpret)
-
-    if _local_override is not None:  # Testing hook (sharding plumbing).
-        local = _local_override
-
-    sharded = shard_map(local, mesh=mesh, in_specs=P(axes, None, None),
-                        out_specs=P(axes), check_vma=False)
-
-    @jax.jit
-    def step(basic_p):
-        n_trials = basic_p.shape[0]
-        if n_trials % (1024 * n_dev):
-            raise LogicError(
-                f"sharded replay step needs n_trials % "
-                f"{1024 * n_dev} == 0 (whole tiles per device)")
-        staged = stage_replay(program, basic_p)
-        assert (staged.shape[0] // n_dev) % blp == 0
-        return sharded(staged)
-
-    return step
-
-
-def sharded_stream_grad_step(aprog, mesh: Mesh,
-                             house_states: np.ndarray,
-                             interpret: bool = False,
-                             _local_override=None):
-    """Data-parallel importance backward: jitted
-    ``(basic_p_batch) -> (per-trial tops, grad_basic)``.
-
-    The adjoint stream program (``ops/adjoint_kernel``) under explicit
-    ``shard_map``: each device runs its own taped forward + reversed
-    backward over its trial tiles (one ``jax.vjp``, no collectives —
-    per-trial tops and per-trial basic gradients concatenate).  The
-    importance analysis path's sharding plumbing, data-parallel.
-
-    Same tile-alignment contract as :func:`sharded_stream_step`.
-    """
-    from ..ops.adjoint_kernel import make_differentiable_stream
-    from ..ops.stream_kernel import stage_basic, unstage_basic
-
-    axes = tuple(mesh.axis_names)
-    n_dev = int(mesh.devices.size)
-    program = aprog.base
-    nbp = program.n_basic_pad
-    f = make_differentiable_stream(aprog, house_states,
-                                   interpret=interpret)
-
-    def local(staged_local):
-        tops, vjp = jax.vjp(f, staged_local)
-        (g_staged,) = vjp(jnp.ones_like(tops))
-        return tops, g_staged
-
-    if _local_override is not None:  # Testing hook (sharding plumbing).
-        local = _local_override
-
-    sharded = shard_map(local, mesh=mesh, in_specs=P(axes, None, None),
-                        out_specs=(P(axes), P(axes, None, None)),
-                        check_vma=False)
-
-    @jax.jit
-    def step(basic_p):
-        n_trials = basic_p.shape[0]
-        if n_trials % (1024 * n_dev):
-            raise LogicError(
-                f"sharded stream grad step needs n_trials % "
-                f"{1024 * n_dev} == 0 (whole tiles per device)")
-        staged = stage_basic(program, basic_p)
-        assert (staged.shape[0] // n_dev) % nbp == 0
-        tops, g_staged = sharded(staged)
-        # stage_basic is a pure permutation: its transpose is the
-        # inverse permutation, so the basic-space gradient is one
-        # unstage of the staged-space cotangent.
-        return tops, unstage_basic(program, g_staged)
-
-    return step

@@ -12,7 +12,7 @@ blocks for uncertainty, ``<curve>`` for SIL sweeps, and
 
 from __future__ import annotations
 
-from lxml import etree
+import xml.etree.ElementTree as ET
 
 from . import __version__
 from .engine.analysis import Report
@@ -21,7 +21,7 @@ __all__ = ["report_to_xml"]
 
 
 def _sub(parent, tag, text=None, **attrs):
-    el = etree.SubElement(parent, tag,
+    el = ET.SubElement(parent, tag,
                           {k.replace("_", "-"): str(v)
                            for k, v in attrs.items() if v is not None})
     if text is not None:
@@ -30,7 +30,7 @@ def _sub(parent, tag, text=None, **attrs):
 
 
 def report_to_xml(report: Report) -> bytes:
-    root = etree.Element("report")
+    root = ET.Element("report")
 
     info = _sub(root, "information")
     software = _sub(info, "software", name="canopy-tpu",
@@ -127,5 +127,5 @@ def report_to_xml(report: Report) -> bytes:
                      trials=unc["n_trials"],
                      method=unc.get("method"))
 
-    return etree.tostring(root, pretty_print=True,
-                          xml_declaration=True, encoding="UTF-8")
+    ET.indent(root)
+    return ET.tostring(root, xml_declaration=True, encoding="UTF-8")

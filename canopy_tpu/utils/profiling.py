@@ -2,7 +2,7 @@
 
 The reference stripped all its logging/timing during the SCRAM port
 (SURVEY.md §5: ``//CLOCK``/``//LOG`` remnants). This module restores it
-TPU-style: structured phase timers (feeding ``RiskAnalysis`` timings and
+with structured phase timers (feeding ``RiskAnalysis`` timings and
 the report's ``<performance>`` section), a roofline accountant that turns
 (bytes moved, elements processed, elapsed) into achieved-fraction
 numbers, and an optional `jax.profiler` trace context for TensorBoard.
@@ -37,16 +37,17 @@ class PhaseTimer:
         return dict(self.times)
 
 
-#: Per-chip HBM bandwidth (bytes/s) by TPU generation.
-HBM_BANDWIDTH = {"v4": 1.228e12, "v5e": 8.19e11, "v5p": 2.765e12,
-                 "v6e": 1.64e12}
-
-
 class RooflineAccountant:
-    """Tracks kernel throughput against the HBM roofline."""
+    """Tracks kernel throughput against the device-memory roofline.
 
-    def __init__(self, generation: str = "v5e"):
-        self.bandwidth = HBM_BANDWIDTH.get(generation, 8.19e11)
+    Peaks come from :data:`canopy_tpu.device.PEAKS` (keyed by
+    ``device_kind``, default: the first JAX device); an unknown device
+    raises instead of borrowing another device's numbers.
+    """
+
+    def __init__(self, device_kind: str | None = None):
+        from ..device import peaks
+        self.bandwidth = peaks(device_kind).hbm_bytes_per_s
         self.records: list[dict] = []
 
     def record(self, name: str, elements: int, bytes_per_element: float,

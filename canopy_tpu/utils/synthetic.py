@@ -21,7 +21,7 @@ from ..mef.event import Arg, BasicEvent, Connective, Formula, Gate
 from ..mef.expr.constant import ConstantExpression
 
 __all__ = ["synthetic_mef_tree", "synthetic_compiled_tree",
-           "synthetic_hierarchical_tree"]
+           "synthetic_hierarchical_tree", "synthetic_plant_model"]
 
 
 def synthetic_mef_tree(n_basic: int = 60, n_gates: int = 40, fanin: int = 3,
@@ -84,7 +84,7 @@ def synthetic_compiled_tree(n_basic: int = 4096, n_gates: int = 100_000,
     ``locality``: when set, a gate's previous-level arguments come from a
     window of that many slots around its own relative position — the
     subsystem structure of real plant models (components feed the gates
-    of their own system). This is the structure the BSR/MXU engine
+    of their own system). This is the structure the BSR matmul engine
     exploits; ``None`` = uniform random (worst case for any blocking).
     """
     rng = np.random.default_rng(seed)
@@ -156,7 +156,7 @@ def synthetic_hierarchical_tree(n_basic: int = 65536, branching: int = 4,
     (l-1) nodes starting at ``i*branching`` (its subsystem's children);
     with probability ``share_fraction`` one argument is redirected into a
     small shared-event window (common-cause couplings). This is the
-    structure the BSR/MXU engine's fill ratio depends on — real plant
+    structure the BSR matmul engine's fill ratio depends on — real plant
     models look like this, uniform-random synthetics do not.
     """
     rng = np.random.default_rng(seed)
@@ -196,3 +196,110 @@ def synthetic_hierarchical_tree(n_basic: int = 65536, branching: int = 4,
         gate_index={f"g{i}": n_basic + i for i in range(total_gates)},
         levels=levels, basic_events=[], house_events=[], gates=[],
         top_index=next_slot - 1)
+
+
+def synthetic_plant_model(n_basic: int = 81920, branching: int = 8,
+                          share_fraction: float = 0.04, n_shared: int = 16,
+                          n_ccf_groups: int = 256, ccf_size: int = 4,
+                          p_range=(1e-5, 2e-4), error_factor: float = 3.0,
+                          beta: float = 0.1, seed: int = 0):
+    """A plant-scale MEF :class:`~canopy_tpu.mef.model.Model`.
+
+    The gate structure is :func:`synthetic_hierarchical_tree` (the
+    ``plant_hier`` shape: subsystem blocks of ``branching`` children,
+    alternating OR/AND, a few module-local shared events) turned into MEF
+    gates and basic events, so it serializes with
+    ``io/mef_writer.model_to_mef_xml`` and loads through the normal
+    ``Initializer`` path.  Every basic event carries a lognormal deviate
+    (mean drawn log-uniformly from ``p_range``, error factor
+    ``error_factor`` at the 95 % level), so epistemic uncertainty has
+    work to do.  ``n_ccf_groups`` beta-factor CCF groups each take
+    ``ccf_size`` sibling basic events of one first-level gate (sharing
+    stays inside that gate's module).  The defaults give 11,703 gates and
+    81,920 basic events; with 16 shared events the modular BDD stays
+    within the analysis' default node cap (32 shared events exceed it).
+    """
+    from ..mef.ccf_group import BetaFactorModel
+    from ..mef.expr.random_deviate import LognormalDeviate
+    from ..mef.fault_tree import FaultTree
+    from ..mef.model import Model
+
+    tree = synthetic_hierarchical_tree(
+        n_basic=n_basic, branching=branching, share_fraction=share_fraction,
+        n_shared=n_shared, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    log_lo, log_hi = np.log(p_range[0]), np.log(p_range[1])
+    means = np.exp(rng.uniform(log_lo, log_hi, n_basic))
+
+    def deviate(mean: float):
+        return LognormalDeviate(ConstantExpression(float(mean)),
+                                ConstantExpression(error_factor),
+                                ConstantExpression(0.95))
+
+    model = Model("plant")
+    fault_tree = FaultTree("plant")
+    model.fault_trees.add(fault_tree)
+    events = [BasicEvent(f"be{i}") for i in range(n_basic)]
+
+    # CCF groups over the first ``ccf_size`` children of evenly spaced
+    # first-level gates (their members take the group's distribution).
+    first = tree.levels[0].prods[0]
+    stride = max(first.n_gates // max(n_ccf_groups, 1), 1)
+    members: set[int] = set()
+    for k in range(min(n_ccf_groups, first.n_gates)):
+        group_members = []
+        for slot in first.arg_idx[k * stride, :ccf_size].tolist():
+            if slot >= n_shared and slot not in members:
+                group_members.append(slot)
+        if len(group_members) < 2:
+            continue
+        group = BetaFactorModel(f"ccf{k}")
+        for slot in group_members:
+            group.add_member(events[slot])
+            members.add(slot)
+        group.add_distribution(deviate(means[group_members[0]]))
+        group.add_factor(ConstantExpression(beta), len(group_members))
+        fault_tree.add_ccf_group(group)
+        model.ccf_groups.add(group)
+    for i, event in enumerate(events):
+        if i not in members:
+            event.expression = deviate(means[i])
+            fault_tree.add_basic_event(event)
+        model.add_basic_event(event)
+
+    # Argument lists; a gate whose every parent edge was redirected to a
+    # shared event goes back under its own subsystem parent, so the
+    # model keeps one top event.
+    arg_lists: dict[int, list[int]] = {}
+    prev_start = 0
+    for level in tree.levels:
+        block = level.prods[0]
+        for g, out in enumerate(block.out_idx.tolist()):
+            arg_lists[out] = list(dict.fromkeys(block.arg_idx[g].tolist()))
+        if prev_start >= n_basic:
+            used = {a for out in block.out_idx.tolist()
+                    for a in arg_lists[out]}
+            for child in range(prev_start, int(block.out_idx[0])):
+                if child not in used:
+                    parent = int(block.out_idx[0]) + min(
+                        (child - prev_start) // branching,
+                        block.n_gates - 1)
+                    arg_lists[parent].append(child)
+        prev_start = int(block.out_idx[0])
+
+    nodes: list = list(events)
+    for level in tree.levels:
+        for block in level.prods:
+            for g in range(block.n_gates):
+                gate = Gate(f"g{int(block.out_idx[g]) - n_basic}")
+                args = arg_lists[int(block.out_idx[g])]
+                connective = (Connective.OR if block.inv_out[g]
+                              else Connective.AND)
+                if len(args) == 1:
+                    connective = Connective.NULL
+                gate.formula = Formula(connective,
+                                       [Arg(nodes[a]) for a in args])
+                fault_tree.add_gate(gate)
+                model.add_gate(gate)
+                nodes.append(gate)
+    return model

@@ -6,7 +6,7 @@ import subprocess
 import sys
 
 import pytest
-from lxml import etree
+import xml.etree.ElementTree as etree
 
 from canopy_tpu.cli import main
 

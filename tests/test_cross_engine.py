@@ -94,32 +94,24 @@ class TestCrossEngine:
         assert 0.0 <= a <= 1.0
 
 
-class TestStreamEnginesAgainstBruteForce:
-    """The round-2 streaming engines against the brute-force oracle
-    (interpret mode; every other engine above is their cross-check)."""
+class TestBatchedEnginesAgainstBruteForce:
+    """The jitted, trial-batched forms of the exact and direct engines
+    against the brute-force oracle (every row of the batch is the same
+    point, so each must reproduce the scalar answer)."""
 
-    def test_bdd_stream_equals_bruteforce(self, case):
-        from canopy_tpu.ops.stream_kernel import (compile_bdd_stream,
-                                                  stream_bdd_probability)
+    def test_bdd_evaluator_batch_equals_bruteforce(self, case):
+        from canopy_tpu.engine.bdd_eval import make_bdd_evaluator
         top, tree, p, exact = case
-        bdd = build_bdd(tree)
-        program = compile_bdd_stream(bdd, chunk_tiles=4)
+        batch = jnp.broadcast_to(p, (1024, tree.n_basic))
+        got = np.asarray(make_bdd_evaluator(build_bdd(tree))(batch))
+        np.testing.assert_allclose(got, exact, rtol=1e-12, atol=1e-15)
+
+    def test_propagator_batch_equals_single(self, case):
+        from canopy_tpu.engine.propagate import make_propagator
+        top, tree, p, exact = case
         batch = jnp.broadcast_to(jnp.asarray(p, jnp.float32),
                                  (1024, tree.n_basic))
-        got = float(np.asarray(
-            stream_bdd_probability(program, batch, interpret=True))[0])
-        assert got == pytest.approx(exact, rel=1e-5)
-
-    def test_stream_propagation_equals_gather(self, case):
-        from canopy_tpu.engine.propagate import top_event_probability
-        from canopy_tpu.ops.stream_kernel import (compile_stream,
-                                                  stream_propagate)
-        top, tree, p, exact = case
-        program = compile_stream(tree, chunk_tiles=4)
-        batch = jnp.broadcast_to(jnp.asarray(p, jnp.float32),
-                                 (1024, tree.n_basic))
-        got = np.asarray(stream_propagate(
-            program, batch, tree.house_state_vector(), interpret=True))
+        got = np.asarray(make_propagator(tree)(batch))
         want = np.asarray(top_event_probability(
             tree, batch, jnp.zeros(tree.n_house)), np.float32)
         np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-7)

@@ -97,9 +97,9 @@ class TestGolden:
 class TestNestedCountAnchor:
     """The deep atleast/cardinality nesting anchor (the hardest
     vectorization case, SURVEY.md §4.2): beyond the generic BDD/MC
-    coverage every fault-tree golden gets, drive it through a THIRD
-    engine — the replay-stream kernel's Poisson-binomial count DP —
-    bit-exact against the gather engine, and pin the structural claims
+    coverage every fault-tree golden gets, drive the jitted f32 gather
+    engine's Poisson-binomial count DP against the f64 evaluation, and
+    pin the structural claims
     (nesting depth, count-gate share) the anchor exists to cover."""
 
     NAME = "aralia_like_nested_count"
@@ -128,40 +128,24 @@ class TestNestedCountAnchor:
                                         Connective.CARDINALITY))
         assert n_count == golden["count_gates"]
 
-    def test_replay_engine_bit_exact(self, nested):
+    def test_gather_engine_count_dp(self, nested):
+        """The jitted gather engine's Poisson-binomial count DP in f32
+        tracks the f64 evaluation on the fan-in-86 vote; direct
+        propagation stays inside the sanity band of the exact value."""
         import numpy as np
         import jax.numpy as jnp
-        from canopy_tpu.compiler.replay import (build_replay_schedule,
-                                                simulate_replay_program)
-        from canopy_tpu.engine.propagate import top_event_probability
+        from canopy_tpu.engine.propagate import (make_propagator,
+                                                 top_event_probability)
 
         golden, tree = nested
-        # The top ATLEAST-32 vote spans 86 roots: rings and pool must
-        # clear fan-in 86 (the deep-nesting anchor stresses wide count
-        # gates too).  The hazard-checking scalar simulator executes
-        # the exact kernel schedule + reduction order (interpret mode
-        # on this fan-in is minutes-slow; the simulator is the same
-        # bit-exactness oracle every replay schedule is validated by).
-        program = build_replay_schedule(
-            tree, brs_chunk=128, brs_bufs=3, grs_chunk=128, grs_bufs=2,
-            slab_bufs=3, slab_tiles=8, max_ops_per_segment=300,
-            pool_slots=128, hoist_events=8, n_refill_sems=4,
-            n_flush_sems=2)
-        assert program.n_evicted > 0
         bp = mean_basic_probabilities(tree)
-        house = tree.house_state_vector()
-        got = simulate_replay_program(program, bp, house)
-        ref = float(top_event_probability(
-            tree, jnp.asarray(bp[None, :], jnp.float32),
-            jnp.asarray(house))[0])
-        # Wide count gates absorb into their DP cap at different
-        # positions in the two engines (same exact math, different f32
-        # rounding order — measured 2e-6 rel on the fan-in-86 vote);
-        # narrow count gates remain bit-exact (tests/test_replay.py).
+        house = jnp.asarray(tree.house_state_vector())
+        got = float(make_propagator(tree)(
+            jnp.asarray(bp[None, :], jnp.float32))[0])
+        ref = float(top_event_probability(tree, jnp.asarray(bp), house))
         assert got == pytest.approx(ref, rel=1e-5)
         # Direct propagation is approximate on shared events — the
-        # anchor's exact value comes from the BDD; sanity-band only
-        # (the generator build measured ~30% divergence here).
+        # anchor's exact value comes from the BDD; sanity-band only.
         assert abs(got - golden["exact_probability"]) \
             < 0.5 * max(golden["exact_probability"], 1e-12) + 1e-9
 
@@ -222,7 +206,7 @@ class TestGoldenAlignment:
 class TestGoldenPlant:
     """Plant-scale anchor: the 9,363-gate hierarchical tree's top
     probability, modular-BDD exact vs the frozen value (itself
-    cross-checked against a recorded 1e7-trial TPU MC capture)."""
+    cross-checked against a recorded 1e7-trial bit-packed MC run)."""
 
     def test_modular_bdd_matches_frozen(self):
         import numpy as np

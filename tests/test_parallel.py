@@ -109,215 +109,3 @@ class TestDeterminism:
         a = sample_states(key, p, 256)
         b = sample_states(key, p, 256)
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-class TestShardedStream:
-    def test_kernel_through_shard_map_one_device(self):
-        # The interpret-mode DMA simulator deadlocks under multi-device
-        # shard_map on CPU, so the kernel itself goes through shard_map
-        # on a 1-device mesh; the 8-device sharding plumbing is covered
-        # below with a jnp-reference local.
-        from jax.sharding import Mesh
-        from canopy_tpu.ops.stream_kernel import compile_stream
-        from canopy_tpu.parallel.quantify import sharded_stream_step
-
-        tree, _top = build_tree(n_groups=12)
-        program = compile_stream(tree, chunk_tiles=4)
-        mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
-                    ("data", "model"))
-        rng = np.random.default_rng(5)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (2048, tree.n_basic)), jnp.float32)
-        house = tree.house_state_vector()
-        step = sharded_stream_step(program, mesh, house, interpret=True)
-        got = np.asarray(step(basic))
-        want = np.asarray(
-            top_event_probability(tree, basic, jnp.asarray(house)),
-            np.float32)
-        np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-7)
-
-    def test_sharding_plumbing_eight_devices(self):
-        from canopy_tpu.ops.stream_kernel import compile_stream, unstage_basic
-        from canopy_tpu.parallel.quantify import sharded_stream_step
-
-        tree, _top = build_tree(n_groups=12)
-        program = compile_stream(tree, chunk_tiles=4)
-        mesh = make_mesh()
-        house = tree.house_state_vector()
-
-        def reference_local(staged_local):
-            p_local = unstage_basic(program, staged_local)
-            return top_event_probability(
-                tree, p_local, jnp.asarray(house)).astype(jnp.float32)
-
-        step = sharded_stream_step(program, mesh, house,
-                                   _local_override=reference_local)
-        rng = np.random.default_rng(7)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (1024 * 8, tree.n_basic)), jnp.float32)
-        got = np.asarray(step(basic))
-        want = np.asarray(
-            top_event_probability(tree, basic, jnp.asarray(house)),
-            np.float32)
-        np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-7)
-
-    def test_trial_grid_enforced(self):
-        from canopy_tpu.errors import LogicError
-        from canopy_tpu.ops.stream_kernel import compile_stream
-        from canopy_tpu.parallel.quantify import sharded_stream_step
-
-        tree, _top = build_tree(n_groups=4)
-        program = compile_stream(tree, chunk_tiles=4)
-        mesh = make_mesh()
-        step = sharded_stream_step(program, mesh,
-                                   tree.house_state_vector(),
-                                   interpret=True)
-        with pytest.raises(LogicError):
-            step(jnp.zeros((1024, tree.n_basic), jnp.float32))
-
-
-class TestShardedReplay:
-    """Data-parallel replay engine (the thrashing-tree flagship)."""
-
-    def _program(self):
-        from canopy_tpu.compiler.replay import build_replay_schedule
-        from canopy_tpu.utils.synthetic import synthetic_compiled_tree
-        tree = synthetic_compiled_tree(n_basic=96, n_gates=900, fanin=4,
-                                       n_levels=10, seed=7)
-        program = build_replay_schedule(
-            tree, pool_slots=12, slab_bufs=3, slab_tiles=8, brs_chunk=16,
-            brs_bufs=3, grs_chunk=8, grs_bufs=2, max_ops_per_segment=150)
-        assert program.n_evicted > 0
-        return tree, program
-
-    def test_replay_kernel_through_shard_map_one_device(self):
-        from jax.sharding import Mesh
-        from canopy_tpu.parallel.quantify import sharded_replay_step
-
-        tree, program = self._program()
-        mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
-                    ("data", "model"))
-        rng = np.random.default_rng(5)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (1024, tree.n_basic)), jnp.float32)
-        house = tree.house_state_vector()
-        step = sharded_replay_step(program, mesh, house, interpret=True)
-        got = np.asarray(step(basic))
-        want = np.asarray(
-            top_event_probability(tree, basic, jnp.asarray(house)),
-            np.float32)
-        np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-7)
-
-    def test_sharding_plumbing_eight_devices(self):
-        from canopy_tpu.ops.stream_kernel import unstage_replay
-        from canopy_tpu.parallel.quantify import sharded_replay_step
-
-        tree, program = self._program()
-        mesh = make_mesh()
-        house = tree.house_state_vector()
-        blp = program.brs_len_pad
-
-        def reference_local(staged_local):
-            t_local = staged_local.shape[0] // blp * 1024
-            p_local = unstage_replay(program, staged_local, t_local)
-            return top_event_probability(
-                tree, p_local, jnp.asarray(house)).astype(jnp.float32)
-
-        step = sharded_replay_step(program, mesh, house,
-                                   _local_override=reference_local)
-        rng = np.random.default_rng(7)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (1024 * 8, tree.n_basic)), jnp.float32)
-        got = np.asarray(step(basic))
-        want = np.asarray(
-            top_event_probability(tree, basic, jnp.asarray(house)),
-            np.float32)
-        np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-7)
-
-    def test_unstage_replay_roundtrip(self):
-        from canopy_tpu.ops.stream_kernel import stage_replay, unstage_replay
-
-        tree, program = self._program()
-        rng = np.random.default_rng(3)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (2048, tree.n_basic)), jnp.float32)
-        brs = stage_replay(program, basic)
-        recon = np.asarray(unstage_replay(program, brs, 2048))
-        cols = np.unique(np.asarray(program.brs_cols))
-        np.testing.assert_array_equal(recon[:, cols],
-                                      np.asarray(basic)[:, cols])
-        unread = np.setdiff1d(np.arange(tree.n_basic), cols)
-        assert not recon[:, unread].any()
-
-
-class TestShardedStreamGrad:
-    def test_adjoint_kernel_through_shard_map_one_device(self):
-        # Real adjoint kernels (taped forward + reversed backward)
-        # through shard_map on a 1-device mesh (interpret DMA deadlocks
-        # multi-device); gradient vs gather autodiff.
-        from jax.sharding import Mesh
-        from canopy_tpu.compiler.adjoint import build_adjoint_schedule
-        from canopy_tpu.ops.stream_kernel import compile_stream
-        from canopy_tpu.parallel.quantify import sharded_stream_grad_step
-
-        tree, _top = build_tree(n_groups=12)
-        program = compile_stream(tree, chunk_tiles=4)
-        aprog = build_adjoint_schedule(program)
-        mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
-                    ("data", "model"))
-        rng = np.random.default_rng(6)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (2048, tree.n_basic)), jnp.float32)
-        house = tree.house_state_vector()
-        step = sharded_stream_grad_step(aprog, mesh, house,
-                                        interpret=True)
-        tops, grad = step(basic)
-        ref_tops, vjp = jax.vjp(
-            lambda p: top_event_probability(
-                tree, p, jnp.asarray(house)).astype(jnp.float32), basic)
-        (ref_grad,) = vjp(jnp.ones_like(ref_tops))
-        np.testing.assert_allclose(np.asarray(tops),
-                                   np.asarray(ref_tops),
-                                   rtol=2e-6, atol=1e-7)
-        scale = float(np.max(np.abs(np.asarray(ref_grad)))) or 1.0
-        assert float(np.max(np.abs(np.asarray(grad)
-                                   - np.asarray(ref_grad)))) / scale < 1e-5
-
-    def test_grad_sharding_plumbing_eight_devices(self):
-        from canopy_tpu.compiler.adjoint import build_adjoint_schedule
-        from canopy_tpu.ops.stream_kernel import (compile_stream,
-                                                  unstage_basic)
-        from canopy_tpu.parallel.quantify import sharded_stream_grad_step
-
-        tree, _top = build_tree(n_groups=12)
-        program = compile_stream(tree, chunk_tiles=4)
-        aprog = build_adjoint_schedule(program)
-        mesh = make_mesh()
-        house = tree.house_state_vector()
-
-        def reference_local(staged_local):
-            def f(s):
-                p_local = unstage_basic(program, s)
-                return top_event_probability(
-                    tree, p_local,
-                    jnp.asarray(house)).astype(jnp.float32)
-            tops_l, vjp = jax.vjp(f, staged_local)
-            (g_staged,) = vjp(jnp.ones_like(tops_l))
-            return tops_l, g_staged
-
-        step = sharded_stream_grad_step(aprog, mesh, house,
-                                        _local_override=reference_local)
-        n_dev = int(mesh.devices.size)
-        rng = np.random.default_rng(7)
-        basic = jnp.asarray(
-            rng.uniform(0.0, 0.3, (1024 * n_dev, tree.n_basic)),
-            jnp.float32)
-        tops, grad = step(basic)
-        ref_tops, vjp = jax.vjp(
-            lambda p: top_event_probability(
-                tree, p, jnp.asarray(house)).astype(jnp.float32), basic)
-        (ref_grad,) = vjp(jnp.ones_like(ref_tops))
-        np.testing.assert_allclose(np.asarray(tops), np.asarray(ref_tops),
-                                   rtol=1e-5, atol=1e-7)
-        np.testing.assert_allclose(np.asarray(grad), np.asarray(ref_grad),
-                                   rtol=1e-5, atol=1e-7)

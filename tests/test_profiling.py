@@ -27,10 +27,10 @@ class TestPhaseTimer:
 
 class TestRoofline:
     def test_fraction(self):
-        acc = RooflineAccountant("v5e")
-        entry = acc.record("spmm", elements=819_000_000,
+        acc = RooflineAccountant("NVIDIA H100 80GB HBM3")
+        entry = acc.record("spmm", elements=3_350_000_000,
                            bytes_per_element=4.0, seconds=8.0)
-        # 819e6 * 4B / 819e9 B/s = 4 ms ideal; 8 s actual -> 5e-4.
+        # 3.35e9 * 4B / 3.35e12 B/s = 4 ms ideal; 8 s actual -> 5e-4.
         assert abs(entry["hbm_fraction"] - 0.0005) < 1e-6
         assert len(acc.report()) == 1
 

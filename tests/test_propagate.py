@@ -265,8 +265,8 @@ class TestNarrowStorage:
 
 
 class TestParamPropagator:
-    """make_param_propagator: index arrays as traced args (remote-compile
-    safe for million-gate trees) — bit-identical to the gather engine."""
+    """make_param_propagator: index arrays as traced arguments —
+    bit-identical to the gather engine."""
 
     def test_bit_identical_to_gather(self):
         import jax
@@ -287,9 +287,7 @@ class TestParamPropagator:
 
     def test_mixed_families_and_house(self):
         import jax
-        import sys, os
-        sys.path.insert(0, os.path.dirname(__file__))
-        from test_stream_kernel import mixed_tree
+        from helpers import mixed_tree
         from canopy_tpu.engine.propagate import (make_param_propagator,
                                                  top_event_probability)
         tree = mixed_tree()
@@ -341,8 +339,8 @@ class TestTopConePruning:
 
 class TestStagedPropagator:
     def test_gather_fallback_identity_stage(self):
-        # On CPU the kernel engines are unavailable: the pair must be
-        # (identity, pruned-cone gather) and match the full evaluation.
+        # The pair is (identity, pruned-cone gather) and matches the full
+        # evaluation.
         from canopy_tpu.engine.propagate import make_staged_propagator
         from canopy_tpu.utils.synthetic import synthetic_compiled_tree
         tree = synthetic_compiled_tree(n_basic=96, n_gates=600, fanin=4,

@@ -532,15 +532,19 @@ def freeze_alignment_golden(golden: dict) -> None:
     print(f"{name}: run={p_run:.12e} service={p_srv:.12e}")
 
 
-#: Recorded 1e7-trial bit-packed MC for the plant anchor, captured on
-#: TPU v5e (2026-08-21, round 4): 2,442 jitted chunks of 4,096 trials
-#: (WORDS=128), keys ``fold_in(PRNGKey(0), chunk)``, success count
-#: 9,876,092 / 10,002,432.  The bit-packed sampler materializes a
-#: (trials, 65536) float matrix per chunk, so the full run is a TPU
-#: job (38 s there; ~26 h on this CPU) — the freezer cross-checks the
-#: CPU-computed exact BDD value against this recorded estimate.
-_PLANT_MC = dict(estimate=0.9873690718417281, trials=10_002_432,
-                 provenance="TPU v5e bit-packed engine, 2026-08-21")
+#: Recorded 1e7-trial bit-packed MC for the plant anchor, run on an
+#: NVIDIA H100 by ``chip_smoke.py``: 10,002,432 trials of the packed
+#: engine in 1,221 chunks of 8,192, chunk ``i`` keyed
+#: ``fold_in(PRNGKey(7), i)``.  ``packed_top_probability`` now sizes its
+#: chunks from the event count (4,096 trials for 65,536 events), so it
+#: draws other numbers for the same key.  The sampler draws a
+#: (trials, 65536) float matrix per chunk, so the full run is a GPU job
+#: (a day on a CPU) — the freezer cross-checks the CPU-computed exact
+#: BDD value against this recorded estimate.
+_PLANT_MC = dict(estimate=0.9872997886913902, trials=10_002_432,
+                 provenance="NVIDIA H100 80GB HBM3, chip_smoke.py: "
+                            "bit-packed MC, 1,221 chunks of 8,192 trials "
+                            "keyed fold_in(PRNGKey(7), chunk)")
 
 
 def freeze_plant_golden(golden: dict) -> None:
@@ -579,10 +583,9 @@ def freeze_plant_golden(golden: dict) -> None:
         "nnz": tree.nnz,
         "bdd_nodes": mb.total_nodes,
         "modules": len(mb.chain),
-        "derivation": "modular (Dutuit-Rauzy) exact BDD (CPU) vs "
-                      "1e7-trial bit-packed MC (recorded TPU capture) "
-                      "on the 9,363-gate hierarchical plant tree (the "
-                      "stream/adjoint criterion scale)",
+        "derivation": "modular (Dutuit-Rauzy) exact BDD vs 1e7-trial "
+                      "bit-packed MC (recorded GPU run) on the 9,363-gate "
+                      "hierarchical plant tree",
     }
     print(f"{name}: P={exact:.10e} (MC {mc:.4e} +-{stderr:.1e}) "
           f"gates={tree.n_gates} modules={len(mb.chain)} "
@@ -724,9 +727,8 @@ def main() -> None:
     # through the batched phase analysis at freeze time.
     freeze_alignment_golden(golden)
 
-    # Plant-scale anchor: the 9,363-gate hierarchical tree (the
-    # adjoint/stream criterion size), BDD-exact vs 1e7-trial bit-packed
-    # MC.  Synthetic compiled-only model: the golden records the
+    # Plant-scale anchor: the 9,363-gate hierarchical tree, BDD-exact
+    # vs 1e7-trial bit-packed MC.  Synthetic compiled-only model: the golden records the
     # generator config instead of an XML file.
     freeze_plant_golden(golden)
 
